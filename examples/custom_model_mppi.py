@@ -1,16 +1,15 @@
-"""Custom-model MPPI on the generic fused tick kernel.
+"""Custom-model MPPI on the GPU rollout kernel.
 
 Demonstrates the framework capability the reference has no counterpart for:
-*any* dynamics model on the single-launch Pallas fast path. Here the
-four-wheel torque-input model (mpc_differential_dynamics.py:98-105 — in the
-reference this model only appears behind acados NMPC) is driven by MPPI with
-obstacle avoidance: the tile step (models/tile.py) is traced straight into
-the fused kernel (on-chip PRNG, rollout, softmax, weighted reduce).
+*any* dynamics model on the one-launch rollout path. Here the four-wheel
+torque-input model (mpc_differential_dynamics.py:98-105 — in the reference
+this model only appears behind acados NMPC) is driven by MPPI with obstacle
+avoidance: the tile step (models/tile.py) is traced straight into the
+rollout kernel on a GPU (the XLA scan runs it elsewhere).
 
     python examples/custom_model_mppi.py [--ticks 200] [--scan]
 
-``--scan`` runs the XLA scan engine instead (the CPU-friendly path; the
-fused tick needs a TPU for its in-kernel PRNG).
+``--scan`` forces the XLA scan engine on a GPU too.
 """
 
 import argparse
@@ -19,24 +18,19 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import jax
-
-from dnn_mppi_mpc_tpu.utils.platform import honor_jax_platforms_env
-
-honor_jax_platforms_env()  # JAX_PLATFORMS=cpu smoke must not dial the TPU
 import jax.numpy as jnp
 import numpy as np
 
-from dnn_mppi_mpc_tpu.config import MPPIConfig, MPPIParams
-from dnn_mppi_mpc_tpu.models import (
+from dnn_mppi_mpc.config import MPPIConfig, MPPIParams
+from dnn_mppi_mpc.models import (
     euler_step,
     four_wheel_torque,
     four_wheel_torque_tile,
 )
-from dnn_mppi_mpc_tpu.paths import line
-from dnn_mppi_mpc_tpu.solvers import MPPISolver, make_tracking_costs
-from dnn_mppi_mpc_tpu.utils import Timer
-from dnn_mppi_mpc_tpu.utils.plotting import plot_controls, plot_trajectory
+from dnn_mppi_mpc.paths import line
+from dnn_mppi_mpc.solvers import MPPISolver, make_tracking_costs
+from dnn_mppi_mpc.utils import Timer
+from dnn_mppi_mpc.utils.plotting import plot_controls, plot_trajectory
 
 
 def main():
@@ -76,19 +70,16 @@ def main():
     step_fn = lambda x, u: euler_step(four_wheel_torque, x, u, dt)
     stage, terminal = make_tracking_costs(cfg, collision="circle", robot_radius=0.4)
 
-    # the generic fused tick's on-chip PRNG is TPU-only: gate on the platform
-    # like bench.py/realtime_loop.py instead of failing at first solve on CPU
-    fused = not args.scan and jax.devices()[0].platform == "tpu"
+    # the solver picks the rollout kernel on a GPU, the scan elsewhere
     solver = MPPISolver(
         cfg,
         step_fn,
         stage,
         terminal,
-        use_pallas=False,
-        fused_tick=fused,
-        tile_dynamics=four_wheel_torque_tile(dt) if fused else None,
-        robot_radius=0.4,
+        use_pallas=False if args.scan else None,
+        tile_dynamics=four_wheel_torque_tile(dt),
     )
+    kernel = solver.rollout_fn is not None
 
     state = solver.init()
     x = jnp.zeros((5,), jnp.float32)
@@ -111,7 +102,7 @@ def main():
         xs,
         ref_path=np.asarray(params.ref_path),
         obstacles=np.asarray(params.obstacles),
-        title=f"four-wheel torque MPPI ({'fused tick' if fused else 'scan'})",
+        title=f"four-wheel torque MPPI ({'kernel' if kernel else 'scan'})",
     )
     plot_controls(os.path.join(args.out, "controls.png"), us, dt)
     err = np.hypot(xs[-1, 0] - 8.0, xs[-1, 1] + 4.0)

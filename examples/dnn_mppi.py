@@ -5,7 +5,8 @@ the reference never closes: train/bullet_mppi_differential_drive.py:222-283
 collects Husky data *with* a batched MPPI controller and train/train_diff_mlp.py
 fits the residual, but the learned model is only ever deployed under acados
 NMPC. Here the trained residual plugs straight back into the MPPI engine
-(dynamics_step is any JAX function; the K-batched MLP rollout rides the MXU).
+(dynamics_step is any JAX function; the K-batched MLP rollout is a chain of
+(K, hidden) matrix products inside the scan).
 
     python examples/dnn_mppi.py
 """
@@ -17,32 +18,28 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
-
-from dnn_mppi_mpc_tpu.utils.platform import honor_jax_platforms_env
-
-honor_jax_platforms_env()  # JAX_PLATFORMS=cpu smoke must not dial the TPU
 import jax.numpy as jnp
 import numpy as np
 
-from dnn_mppi_mpc_tpu.config import MPPIConfig, MPPIParams
-from dnn_mppi_mpc_tpu.envs.closed_loop import (
+from dnn_mppi_mpc.config import MPPIConfig, MPPIParams
+from dnn_mppi_mpc.envs.closed_loop import (
     collect_residual_dataset,
     mppi_controller,
     run_closed_loop,
 )
-from dnn_mppi_mpc_tpu.models import euler_step, unicycle
-from dnn_mppi_mpc_tpu.models.learned import (
+from dnn_mppi_mpc.models import euler_step, unicycle
+from dnn_mppi_mpc.models.learned import (
     MLP,
     ResNet1D,
     make_residual_fn,
     residual_from_train_state,
 )
-from dnn_mppi_mpc_tpu.paths import line
-from dnn_mppi_mpc_tpu.solvers.mppi import MPPISolver, make_tracking_costs
-from dnn_mppi_mpc_tpu.train.checkpoint import save_checkpoint
-from dnn_mppi_mpc_tpu.train.training import TrainConfig, train_residual_model
-from dnn_mppi_mpc_tpu.utils.benchtime import slope_timing
-from dnn_mppi_mpc_tpu.utils.plotting import plot_training_curves, plot_trajectory
+from dnn_mppi_mpc.paths import line
+from dnn_mppi_mpc.solvers.mppi import MPPISolver, make_tracking_costs
+from dnn_mppi_mpc.train.checkpoint import save_checkpoint
+from dnn_mppi_mpc.train.training import TrainConfig, train_residual_model
+from dnn_mppi_mpc.utils.benchtime import chain_timing
+from dnn_mppi_mpc.utils.plotting import plot_training_curves, plot_trajectory
 
 DT = 0.05
 
@@ -103,10 +100,6 @@ def main():
         help="residual regressor family — the conv ResNets are the "
         "reference's train_diff_resnet18/50.py models as controller "
         "dynamics (BASELINE config 5)",
-    )
-    ap.add_argument(
-        "--fused-interpret", action="store_true", dest="fused_interpret",
-        help="validate the fused Pallas MLP step in interpret mode off-TPU",
     )
     args = ap.parse_args()
     os.makedirs(args.out, exist_ok=True)
@@ -169,11 +162,7 @@ def main():
         ref_path=np.asarray(ref_path), title=f"DNN-MPPI (rmse {rmse_dnn:.2f} m)",
     )
 
-    # 4. throughput of the learned-dynamics MPPI tick, A/B:
-    #    (a) plain XLA scan — each Dense layer a separate HLO, (K, hidden)
-    #        activations round-trip HBM between layers every rollout step;
-    #    (b) fused Pallas MLP step (ops/pallas/mlp_step.py) — scalers + dt
-    #        folded into the weights, whole layer chain resident in VMEM.
+    # 4. throughput of the learned-dynamics MPPI tick (XLA scan)
     def bench_tick(dynamics_step, label):
         solver, params = make_solver(
             dynamics_step, args.samples, args.horizon, ref_path
@@ -191,12 +180,10 @@ def main():
                 c, ys = jax.lax.scan(body, carry, None, length=n)
                 return ys
 
-            def run():
-                float(jnp.sum(run_chain(c0)))  # device reduce + host fetch
+            return lambda: run_chain(c0)
 
-            return run
-
-        tau = slope_timing(make_runner, 20, 100, reps=8).tau
+        tau = chain_timing(make_runner, 50, 5).p50
+        dev = jax.devices()[0]
         print(
             f"DNN-MPPI (K={args.samples}, T={args.horizon}, "
             + (
@@ -204,39 +191,12 @@ def main():
                 if args.model == "mlp"
                 else f"{args.model} conv residual, "
             )
-            + 
-            f"{label}): {tau*1e3:.3f} ms/solve ({1/tau:.0f} solves/s) "
-            f"on {jax.devices()[0].platform}"
+            + f"{label}): {tau*1e3:.3f} ms/solve ({1/tau:.0f} solves/s) "
+            f"on {dev.platform} ({dev.device_kind})"
         )
         return tau
 
     bench_tick(corrected_step, f"XLA scan ({args.model})")
-    on_tpu = jax.devices()[0].platform == "tpu"
-    if args.model == "mlp" and (on_tpu or args.fused_interpret):
-        from dnn_mppi_mpc_tpu.ops.pallas.mlp_step import make_fused_residual_step
-
-        # residual_scale=1: the net was fit to discrete one-step errors
-        # (data.errors = plant_step − nominal_step), not a rate
-        fused_step = make_fused_residual_step(
-            unicycle, tstate.params, DT, tstate.in_scaler, tstate.out_scaler,
-            interpret=not on_tpu, residual_scale=1.0,
-        )
-        xs = jax.random.normal(jax.random.PRNGKey(3), (64, 3), jnp.float32)
-        us = jax.random.normal(jax.random.PRNGKey(4), (64, 2), jnp.float32)
-        # Parity check, warn-not-abort: on TPU the flax Dense path may run at
-        # reduced matmul precision while the fused kernel computes in f32, so
-        # wide nets can drift past a tight rtol on some hardware — the bench
-        # output should still complete (round-2 advisor finding).
-        try:
-            np.testing.assert_allclose(
-                np.asarray(fused_step(xs, us)),
-                np.asarray(corrected_step(xs, us)),
-                rtol=2e-4, atol=2e-5,
-            )
-        except AssertionError as exc:
-            print(f"WARNING: fused-vs-XLA residual step drift ({exc})")
-        if on_tpu:
-            bench_tick(fused_step, "fused Pallas MLP step")
     print(f"artifacts -> {args.out}")
 
 

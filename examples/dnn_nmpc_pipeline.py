@@ -16,21 +16,17 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
-
-from dnn_mppi_mpc_tpu.utils.platform import honor_jax_platforms_env
-
-honor_jax_platforms_env()  # JAX_PLATFORMS=cpu smoke must not dial the TPU
 import jax.numpy as jnp
 import numpy as np
 
-from dnn_mppi_mpc_tpu.config import SQPConfig
-from dnn_mppi_mpc_tpu.envs.closed_loop import collect_residual_dataset
-from dnn_mppi_mpc_tpu.models import erk_step, residual_dynamics, unicycle
-from dnn_mppi_mpc_tpu.models.learned import MLP, make_residual_fn
-from dnn_mppi_mpc_tpu.solvers.sqp import NMPCSolver, OCPParams
-from dnn_mppi_mpc_tpu.train.checkpoint import save_checkpoint
-from dnn_mppi_mpc_tpu.train.training import TrainConfig, train_residual_model
-from dnn_mppi_mpc_tpu.utils.plotting import plot_training_curves, plot_trajectory
+from dnn_mppi_mpc.config import SQPConfig
+from dnn_mppi_mpc.envs.closed_loop import collect_residual_dataset
+from dnn_mppi_mpc.models import erk_step, residual_dynamics, unicycle
+from dnn_mppi_mpc.models.learned import MLP, make_residual_fn
+from dnn_mppi_mpc.solvers.sqp import NMPCSolver, OCPParams
+from dnn_mppi_mpc.train.checkpoint import save_checkpoint
+from dnn_mppi_mpc.train.training import TrainConfig, train_residual_model
+from dnn_mppi_mpc.utils.plotting import plot_training_curves, plot_trajectory
 
 DT = 0.1
 N = 10

@@ -4,7 +4,7 @@ Headless re-creation of controllers/mppi_differential_drive.py:392-443:
 straight-line reference to (10, −5), K=100, T=10 at 10 Hz, Euler plant;
 saves trajectory + control plots instead of an mp4.
 
-    python examples/mppi_diffdrive.py [--ticks 300] [--pallas]
+    python examples/mppi_diffdrive.py [--ticks 300] [--scan]
 """
 
 import argparse
@@ -14,19 +14,15 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
-
-from dnn_mppi_mpc_tpu.utils.platform import honor_jax_platforms_env
-
-honor_jax_platforms_env()  # JAX_PLATFORMS=cpu smoke must not dial the TPU
 import jax.numpy as jnp
 import numpy as np
 
-from dnn_mppi_mpc_tpu.config import MPPIConfig, MPPIParams, SmoothingFilter, Temperature
-from dnn_mppi_mpc_tpu.models import euler_step, unicycle
-from dnn_mppi_mpc_tpu.paths import line
-from dnn_mppi_mpc_tpu.solvers import MPPISolver, make_tracking_costs
-from dnn_mppi_mpc_tpu.utils import Timer
-from dnn_mppi_mpc_tpu.utils.plotting import plot_controls, plot_trajectory
+from dnn_mppi_mpc.config import MPPIConfig, MPPIParams, SmoothingFilter, Temperature
+from dnn_mppi_mpc.models import euler_step, unicycle, unicycle_tile
+from dnn_mppi_mpc.paths import line
+from dnn_mppi_mpc.solvers import MPPISolver, make_tracking_costs
+from dnn_mppi_mpc.utils import Timer
+from dnn_mppi_mpc.utils.plotting import plot_controls, plot_trajectory
 
 
 def main():
@@ -34,7 +30,11 @@ def main():
     ap.add_argument("--ticks", type=int, default=300)
     ap.add_argument("--samples", type=int, default=1024)
     ap.add_argument("--horizon", type=int, default=10)
-    ap.add_argument("--pallas", action="store_true")
+    ap.add_argument(
+        "--scan", action="store_true",
+        help="force the XLA scan engine (the default is the GPU rollout kernel "
+        "on a GPU, the scan elsewhere)",
+    )
     ap.add_argument(
         "--animate",
         action="store_true",
@@ -57,8 +57,7 @@ def main():
         temperature=Temperature.EXPLORATION,
         filter=SmoothingFilter.MOVING_AVERAGE_EDGE,
         filter_window=min(10, args.horizon),
-        use_pallas=args.pallas,
-    compute_optimal_traj=True,  # this example plots the planned trajectory
+        compute_optimal_traj=True,  # this example plots the planned trajectory
     )
     ref = line(jnp.zeros(2), jnp.array([10.0, -5.0]), 100)
     params = MPPIParams(
@@ -70,7 +69,10 @@ def main():
         ref_path=ref,
     )
     step_fn = lambda x, u: euler_step(unicycle, x, u, dt)
-    solver = MPPISolver(cfg, step_fn, *make_tracking_costs(cfg))
+    solver = MPPISolver(
+        cfg, step_fn, *make_tracking_costs(cfg),
+        use_pallas=False if args.scan else None, tile_dynamics=unicycle_tile(dt),
+    )
 
     x = jnp.zeros(3)
     state = solver.init(jax.random.PRNGKey(0))
@@ -98,7 +100,7 @@ def main():
     )
     plot_controls(os.path.join(args.out, "controls.png"), np.asarray(us), dt, ["v [m/s]", "ω [rad/s]"])
     if args.animate:
-        from dnn_mppi_mpc_tpu.utils.plotting import save_animation
+        from dnn_mppi_mpc.utils.plotting import save_animation
 
         save_animation(
             os.path.join(args.out, "closed_loop.gif"),

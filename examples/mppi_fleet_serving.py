@@ -1,17 +1,12 @@
-"""Fleet MPPI serving: B controllers per chip on the lane-batched fleet tick.
+"""Fleet MPPI serving: B controllers per card, one rollout launch per tick.
 
 The MPPI counterpart of examples/nmpc_fleet_serving.py — a whole fleet of
 independent diff-drive MPPI controllers (per-member reference path, state,
-and PRNG stream) ticks as ONE Pallas launch per control step
-(solvers.make_fleet_fused_mppi_step → ops/pallas/mppi_tick_blocked.
-fleet_mppi_tick). The reference's analog runs one controller process per
-robot (train/bullet_mpc_differential_drive.py:119-157 collects series
-sequentially); measured 28× over the vmapped-scan fleet at B=16, K=1024
-(docs/PERF.md).
-
-On CPU (no Mosaic PRNG) the example falls back to the vmapped scan engine —
-same semantics, same closed loop — so the smoke tests exercise the full
-pipeline.
+and PRNG stream) ticks as one vmapped ``mppi_step``; on a GPU the vmapped
+rollout kernel is one launch for the whole fleet (a grid axis per member).
+The reference's analog runs one controller process per robot
+(train/bullet_mpc_differential_drive.py:119-157 collects series
+sequentially). On a CPU the same fleet runs the scan path.
 
     python examples/mppi_fleet_serving.py --fleet 16 --samples 1024 --bench
 """
@@ -19,7 +14,7 @@ pipeline.
 from __future__ import annotations
 
 import argparse
-import functools
+import dataclasses
 import json
 import os
 import sys
@@ -27,24 +22,16 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
-
-from dnn_mppi_mpc_tpu.utils.platform import honor_jax_platforms_env
-
-honor_jax_platforms_env()
 import jax.numpy as jnp
 import numpy as np
 
-from dnn_mppi_mpc_tpu.config import MPPIConfig, MPPIParams
-from dnn_mppi_mpc_tpu.models.dynamics import unicycle
-from dnn_mppi_mpc_tpu.models.integrators import euler_step
-from dnn_mppi_mpc_tpu.paths import line
-from dnn_mppi_mpc_tpu.solvers.mppi import (
-    MPPIState,
-    make_fleet_fused_mppi_step,
-    make_tracking_costs,
-    mppi_step,
-)
-from dnn_mppi_mpc_tpu.utils.benchtime import slope_timing
+from dnn_mppi_mpc.config import MPPIConfig, MPPIParams
+from dnn_mppi_mpc.models.dynamics import unicycle
+from dnn_mppi_mpc.models.integrators import euler_step
+from dnn_mppi_mpc.models.tile import unicycle_tile
+from dnn_mppi_mpc.paths import line
+from dnn_mppi_mpc.solvers.mppi import MPPISolver, MPPIState, make_tracking_costs
+from dnn_mppi_mpc.utils.benchtime import chain_timing, scan_chain_runner
 
 
 def main() -> None:
@@ -58,13 +45,12 @@ def main() -> None:
         "--sharded",
         action="store_true",
         help="partition the fleet over a device mesh (make_sharded_mppi_fleet; "
-        "zero collectives, fused fleet tick kept per shard on TPU) — on one "
-        "chip this is the 1-shard A/B vs the unsharded launch",
+        "zero collectives, the rollout kernel kept per shard) — on one card "
+        "this is the 1-shard A/B vs the unsharded launch",
     )
     args = ap.parse_args()
 
     B, dt = args.fleet, 0.05
-    on_tpu = jax.devices()[0].platform == "tpu"
     cfg = MPPIConfig(
         num_samples=args.samples, horizon=args.horizon,
         dim_x=3, dim_u=2, dt=dt, waypoint_search_len=20,
@@ -85,36 +71,28 @@ def main() -> None:
         ref_path=paths,  # (B, P, 3): per-member references
     )
 
+    stage, terminal = make_tracking_costs(cfg)
+    solver = MPPISolver(cfg, step_fn, stage, terminal, tile_dynamics=unicycle_tile(dt))
+    path = "rollout kernel" if solver.rollout_fn is not None else "scan path"
     if args.sharded:
-        from dnn_mppi_mpc_tpu.parallel import make_mesh, make_sharded_mppi_fleet
+        from dnn_mppi_mpc.parallel import make_mesh, make_sharded_mppi_fleet
 
         mesh = make_mesh(("batch",))
-        stage, terminal = make_tracking_costs(cfg)
         fleet = make_sharded_mppi_fleet(
-            cfg, step_fn, stage, terminal, mesh, axis="batch", fused=on_tpu
+            cfg, step_fn, stage, terminal, mesh, axis="batch",
+            rollout_fn=solver.rollout_fn,
         )
-        mode = (
-            f"mesh-sharded fleet over {mesh.shape['batch']} device(s) — "
-            + ("fused fleet tick per shard" if on_tpu else "scan path per shard")
-        )
-    elif on_tpu:
-        fleet = make_fleet_fused_mppi_step(cfg, step_fn)
-        mode = "fused fleet tick (one Pallas launch per control step)"
+        mode = f"mesh-sharded fleet over {mesh.shape['batch']} device(s), {path}"
     else:
-        stage, terminal = make_tracking_costs(cfg)
-        inner = functools.partial(mppi_step, cfg, step_fn, stage, terminal)
 
         @jax.jit
         def fleet(p, states, xs):
-            import dataclasses
-
             def member(path, st, x):
-                pm = dataclasses.replace(p, ref_path=path)
-                return inner(pm, st, x, None)
+                return solver._step(dataclasses.replace(p, ref_path=path), st, x, None)
 
             return jax.vmap(member)(p.ref_path, states, xs)
 
-        mode = "vmapped scan fallback (CPU: Mosaic PRNG unavailable)"
+        mode = f"vmapped fleet, {path}"
 
     keys = jax.vmap(jax.random.PRNGKey)(jnp.arange(B, dtype=jnp.uint32))
     states = jax.vmap(lambda k: MPPIState.init(cfg, k))(keys)
@@ -139,36 +117,24 @@ def main() -> None:
     if args.bench:
         st0 = jax.vmap(lambda k: MPPIState.init(cfg, k))(keys)
 
-        def mk(n):
-            @jax.jit
-            def chain(st, x):
-                def body(carry, _):
-                    st, x = carry
-                    u0s, st, auxs = fleet(params, st, x)
-                    x = jax.vmap(step_fn)(x, u0s)
-                    return (st, x), auxs.costs[:, 0]
+        def body(p, st, x):
+            u0s, st, auxs = fleet(p, st, x)
+            return (st, jax.vmap(step_fn)(x, u0s)), auxs.costs[:, 0]
 
-                (st, x), ys = jax.lax.scan(body, (st, x), None, length=n)
-                return x, ys
-
-            def run():
-                out = chain(st0, jnp.zeros((B, 3), jnp.float32))
-                float(sum(jnp.sum(a) for a in jax.tree.leaves(out)))
-
-            return run
-
-        n1, n2 = (50, 250) if on_tpu else (2, 6)
-        t = slope_timing(mk, n1, n2, reps=10 if on_tpu else 3)
+        x0 = jnp.zeros((B, 3), jnp.float32)
+        t = chain_timing(lambda n: scan_chain_runner(body, params, st0, x0, n), 50, 5)
+        dev = jax.devices()[0]
         print(
             json.dumps(
                 {
                     "metric": f"mppi_fleet_tick_B{B}_K{args.samples}"
-                    + ("_fused" if on_tpu else "_cpu_scan")
                     + ("_sharded" if args.sharded else ""),
-                    "fleet_ticks_per_s": round(1.0 / t.tau, 2),
-                    "member_solves_per_s": round(B / t.tau, 1),
-                    "per_tick_ms_p50": round(t.p50 * 1e3, 4),
-                    "device": str(jax.devices()[0]),
+                    "fleet_ticks_per_s": t.ticks_per_s,
+                    "member_solves_per_s": B * t.ticks_per_s,
+                    "per_tick_ms_p50": t.p50 * 1e3,
+                    "path": path,
+                    "platform": dev.platform,
+                    "device_kind": dev.device_kind,
                 }
             )
         )

@@ -14,23 +14,24 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
-
-from dnn_mppi_mpc_tpu.utils.platform import honor_jax_platforms_env
-
-honor_jax_platforms_env()  # JAX_PLATFORMS=cpu smoke must not dial the TPU
 import jax.numpy as jnp
 import numpy as np
 
-from dnn_mppi_mpc_tpu.config import (
+from dnn_mppi_mpc.config import (
     MPPIConfig,
     MPPIParams,
     SmoothingFilter,
     Temperature,
 )
-from dnn_mppi_mpc_tpu.models import BicycleParams, euler_step, kinematic_bicycle
-from dnn_mppi_mpc_tpu.paths import lemniscate_with_speed
-from dnn_mppi_mpc_tpu.solvers import MPPISolver, make_tracking_costs
-from dnn_mppi_mpc_tpu.utils.plotting import plot_controls, plot_trajectory
+from dnn_mppi_mpc.models import (
+    BicycleParams,
+    euler_step,
+    kinematic_bicycle,
+    kinematic_bicycle_tile,
+)
+from dnn_mppi_mpc.paths import lemniscate_with_speed
+from dnn_mppi_mpc.solvers import MPPISolver, make_tracking_costs
+from dnn_mppi_mpc.utils.plotting import plot_controls, plot_trajectory
 
 
 def main():
@@ -38,10 +39,9 @@ def main():
     ap.add_argument("--ticks", type=int, default=300)
     ap.add_argument("--samples", type=int, default=2048)
     ap.add_argument(
-        "--fused-tick",
-        action="store_true",
-        help="run the single-launch Pallas bicycle tick (on-chip PRNG; "
-        "TPU only — ops/pallas/bicycle_tick.py)",
+        "--scan", action="store_true",
+        help="force the XLA scan engine (the default is the GPU rollout kernel "
+        "on a GPU, the scan elsewhere)",
     )
     ap.add_argument(
         "--animate",
@@ -66,7 +66,7 @@ def main():
         filter=SmoothingFilter.MOVING_AVERAGE_PADDED,
         filter_window=10,
         waypoint_search_len=200,
-    compute_optimal_traj=True,  # this example plots the planned trajectory
+        compute_optimal_traj=True,  # this example plots the planned trajectory
     )
     ref = lemniscate_with_speed(10.0, 200, speed=5.0)
     params = MPPIParams(
@@ -81,12 +81,10 @@ def main():
     bp = BicycleParams(wheel_base=jnp.asarray(2.5))
     step_fn = lambda x, u: euler_step(lambda s, a: kinematic_bicycle(s, a, bp), x, u, dt)
     stage, terminal = make_tracking_costs(cfg, wrap_yaw=True, collision="polygon")
-    tick_fn = None
-    if args.fused_tick:
-        from dnn_mppi_mpc_tpu.solvers.mppi import make_pallas_bicycle_tick
-
-        tick_fn = make_pallas_bicycle_tick(cfg, wheel_base=2.5)
-    solver = MPPISolver(cfg, step_fn, stage, terminal, tick_fn=tick_fn)
+    solver = MPPISolver(
+        cfg, step_fn, stage, terminal, use_pallas=False if args.scan else None,
+        tile_dynamics=kinematic_bicycle_tile(dt, 2.5),
+    )
 
     x = jnp.asarray(np.asarray(ref[0], dtype=np.float32))
     state = solver.init(jax.random.PRNGKey(0))
@@ -111,7 +109,7 @@ def main():
     )
     plot_controls(os.path.join(args.out, "controls.png"), np.asarray(us), dt, ["steer [rad]", "accel [m/s²]"])
     if args.animate:
-        from dnn_mppi_mpc_tpu.utils.plotting import save_animation
+        from dnn_mppi_mpc.utils.plotting import save_animation
 
         save_animation(
             os.path.join(args.out, "closed_loop.gif"),

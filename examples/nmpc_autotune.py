@@ -25,16 +25,12 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
-
-from dnn_mppi_mpc_tpu.utils.platform import honor_jax_platforms_env
-
-honor_jax_platforms_env()  # JAX_PLATFORMS=cpu smoke must not dial the TPU
 import jax.numpy as jnp
 import optax
 
-from dnn_mppi_mpc_tpu.config import SQPConfig
-from dnn_mppi_mpc_tpu.models.dynamics import unicycle
-from dnn_mppi_mpc_tpu.solvers.sqp import NMPCSolver, NMPCState, OCPParams
+from dnn_mppi_mpc.config import SQPConfig
+from dnn_mppi_mpc.models.dynamics import unicycle
+from dnn_mppi_mpc.solvers.sqp import NMPCSolver, NMPCState, OCPParams
 
 
 def main():

@@ -18,15 +18,11 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-from dnn_mppi_mpc_tpu.utils.platform import honor_jax_platforms_env
-
-honor_jax_platforms_env()  # JAX_PLATFORMS=cpu smoke must not dial the TPU
-
-from dnn_mppi_mpc_tpu.config import SQPConfig
-from dnn_mppi_mpc_tpu.envs.obstacles import drift_obstacles
-from dnn_mppi_mpc_tpu.models import erk_step, unicycle
-from dnn_mppi_mpc_tpu.solvers.sqp import NMPCSolver, OCPParams, circle_obstacle_h
-from dnn_mppi_mpc_tpu.utils.plotting import plot_controls, plot_trajectory
+from dnn_mppi_mpc.config import SQPConfig
+from dnn_mppi_mpc.envs.obstacles import drift_obstacles
+from dnn_mppi_mpc.models import erk_step, unicycle
+from dnn_mppi_mpc.solvers.sqp import NMPCSolver, OCPParams, circle_obstacle_h
+from dnn_mppi_mpc.utils.plotting import plot_controls, plot_trajectory
 
 
 def main():

@@ -22,13 +22,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax.numpy as jnp
 import numpy as np
 
-from dnn_mppi_mpc_tpu.utils.platform import honor_jax_platforms_env
-
-honor_jax_platforms_env()  # JAX_PLATFORMS=cpu smoke must not dial the TPU
-
-from dnn_mppi_mpc_tpu.envs.kinematics import diff_drive_wheel_speeds
-from dnn_mppi_mpc_tpu.envs.plants import WheelPlant
-from dnn_mppi_mpc_tpu.presets import diff_drive_nmpc
+from dnn_mppi_mpc.envs.kinematics import diff_drive_wheel_speeds
+from dnn_mppi_mpc.envs.plants import WheelPlant
+from dnn_mppi_mpc.presets import diff_drive_nmpc
 
 
 def main() -> None:

@@ -2,9 +2,10 @@
 
 The realtime deployment loop (runtime/loop.py, mirroring the reference's
 PyBullet actuation loop at simulation/bullet_differential_drive_dnn.py:419-467)
-is paced by the C++ absolute-deadline pacer (runtime/src/dmmrt.cpp). The TPU
-solve is ~0.05 ms (docs/PERF.md), so the end-to-end 50 Hz p99 budget rests on
-the HOST half: how late past each deadline does ``clock_nanosleep`` wake?
+is paced by the C++ absolute-deadline pacer (runtime/src/dmmrt.cpp). The GPU
+solve is a small fraction of the 20 ms period (docs/PERF.md), so the
+end-to-end 50 Hz p99 budget rests on the HOST half: how late past each
+deadline does ``clock_nanosleep`` wake?
 
 Run: ``python examples/pacer_characterization.py [--seconds 4]``
 Prints one JSON line per rate with lateness percentiles (µs).
@@ -21,7 +22,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from dnn_mppi_mpc_tpu.runtime.native import RatePacer  # noqa: E402
+from dnn_mppi_mpc.runtime.native import RatePacer  # noqa: E402
 
 
 def characterize(hz: float, seconds: float) -> dict:

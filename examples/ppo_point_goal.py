@@ -14,16 +14,12 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
-
-from dnn_mppi_mpc_tpu.utils.platform import honor_jax_platforms_env
-
-honor_jax_platforms_env()  # JAX_PLATFORMS=cpu smoke must not dial the TPU
 import jax.numpy as jnp
 import numpy as np
 
-from dnn_mppi_mpc_tpu.envs.sensors import goal_relative_obs
-from dnn_mppi_mpc_tpu.models import euler_step, unicycle
-from dnn_mppi_mpc_tpu.train.rl import ActorCritic, PPOConfig, make_ppo_trainer
+from dnn_mppi_mpc.envs.sensors import goal_relative_obs
+from dnn_mppi_mpc.models import euler_step, unicycle
+from dnn_mppi_mpc.train.rl import ActorCritic, PPOConfig, make_ppo_trainer
 
 
 def main():

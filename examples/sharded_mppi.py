@@ -1,7 +1,8 @@
 """Sample-sharded MPPI across a device mesh.
 
 Runs the flagship diff-drive MPPI with the K rollout dimension sharded over
-all available devices (real chips, or a virtual CPU mesh via
+all available devices (GPUs, each shard on the rollout kernel, or a virtual
+CPU mesh via
 ``XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu``).
 
     python examples/sharded_mppi.py --samples 16384
@@ -16,15 +17,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 import jax.numpy as jnp
-
-from dnn_mppi_mpc_tpu.utils.platform import honor_jax_platforms_env
-
-honor_jax_platforms_env()  # JAX_PLATFORMS=cpu virtual mesh must not dial the TPU
 import numpy as np
 
 from __graft_entry__ import _flagship
-from dnn_mppi_mpc_tpu.parallel.sharding import make_mesh, make_sharded_mppi_step
-from dnn_mppi_mpc_tpu.solvers.mppi import MPPIState
+from dnn_mppi_mpc.models.tile import unicycle_tile
+from dnn_mppi_mpc.parallel.sharding import make_mesh, make_sharded_mppi_step
+from dnn_mppi_mpc.solvers.mppi import MPPISolver, MPPIState
 
 
 def main():
@@ -40,7 +38,10 @@ def main():
 
     cfg, params, step_fn, stage, terminal = _flagship(K, args.horizon)
     mesh = make_mesh(("k",))
-    step = make_sharded_mppi_step(cfg, step_fn, stage, terminal, mesh)
+    rollout_fn = MPPISolver(
+        cfg, step_fn, stage, terminal, tile_dynamics=unicycle_tile(cfg.dt)
+    ).rollout_fn
+    step = make_sharded_mppi_step(cfg, step_fn, stage, terminal, mesh, rollout_fn=rollout_fn)
 
     state = MPPIState.init(cfg)
     x = jnp.zeros(3, jnp.float32)

@@ -51,10 +51,8 @@ WEIGHTS = {
     "test_cli.py": 15,
     "test_mppi_learned.py": 15,
     "test_mppi_parity.py": 15,
-    "test_pallas_bicycle.py": 15,
-    "test_sharded_fused.py": 12,
-    "test_generic_tick.py": 12,
-    "test_mppi_tick.py": 12,
+    "test_generic_tick.py": 25,
+    "test_chip_smoke.py": 60,
     "test_sqp_vs_scipy.py": 12,
 }
 

@@ -5,12 +5,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from dnn_mppi_mpc_tpu.config import MPPIConfig, MPPIParams
-from dnn_mppi_mpc_tpu.models.dynamics import unicycle
-from dnn_mppi_mpc_tpu.models.integrators import euler_step
-from dnn_mppi_mpc_tpu.solvers.cem import CEMConfig, CEMSolver
-from dnn_mppi_mpc_tpu.solvers.mppi import MPPISolver, make_tracking_costs
-from dnn_mppi_mpc_tpu.paths.generators import line
+from dnn_mppi_mpc.config import MPPIConfig, MPPIParams
+from dnn_mppi_mpc.models.dynamics import unicycle
+from dnn_mppi_mpc.models.integrators import euler_step
+from dnn_mppi_mpc.solvers.cem import CEMConfig, CEMSolver
+from dnn_mppi_mpc.solvers.mppi import MPPISolver, make_tracking_costs
+from dnn_mppi_mpc.paths.generators import line
 
 DT = 0.1
 

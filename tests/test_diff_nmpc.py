@@ -20,9 +20,9 @@ import jax.numpy as jnp
 import pytest
 import numpy as np
 
-from dnn_mppi_mpc_tpu.config import SQPConfig
-from dnn_mppi_mpc_tpu.models.dynamics import unicycle
-from dnn_mppi_mpc_tpu.solvers.sqp import NMPCSolver, NMPCState, OCPParams
+from dnn_mppi_mpc.config import SQPConfig
+from dnn_mppi_mpc.models.dynamics import unicycle
+from dnn_mppi_mpc.solvers.sqp import NMPCSolver, NMPCState, OCPParams
 
 _GOAL = jnp.array([1.5, 1.0, 0.5], jnp.float32)
 
@@ -107,7 +107,7 @@ def test_x0_gradient_matches_finite_differences():
 def test_pallas_backend_gradients_match_xla():
     """jax.grad through a qp_backend="pallas" tick (the custom_vjp recompute
     rule in ops/pallas/riccati_qp.py) matches the all-XLA graph's gradient —
-    single tick and vmapped fleet (lane-batched kernel) alike."""
+    single tick and vmapped fleet (fleet kernel) alike."""
     import dataclasses
 
     cfgp = SQPConfig(
@@ -115,7 +115,8 @@ def test_pallas_backend_gradients_match_xla():
         sqp_iters=1, qp_iters=6, qp_backend="pallas",
     )
     cfgx = dataclasses.replace(cfgp, qp_backend="xla")
-    sp, sx = NMPCSolver(cfgp, unicycle), NMPCSolver(cfgx, unicycle)
+    sp = NMPCSolver(cfgp, unicycle, interpret=True)
+    sx = NMPCSolver(cfgx, unicycle)
     theta = jnp.log(jnp.array([10.0, 10.0, 0.1, 0.5, 0.05], jnp.float32))
     x0 = jnp.array([0.2, -0.1, 0.0], jnp.float32)
 
@@ -143,7 +144,7 @@ def test_pallas_backend_gradients_match_xla():
     )
     np.testing.assert_allclose(np.asarray(gp), np.asarray(gx), rtol=2e-3, atol=1e-4)
 
-    # vmapped fleet: grad flows through the lane-batched kernel's custom_vjp
+    # vmapped fleet: grad flows through the fleet kernel's custom_vjp
     op = _params(jnp.exp(theta[:3]), jnp.exp(theta[3:]), cfgp.N)
     x0s = jnp.stack([x0, x0 + 0.1, x0 - 0.2])
     ops = jax.tree.map(lambda a: jnp.broadcast_to(a, (3,) + a.shape), op)
@@ -184,15 +185,11 @@ def test_autotune_improves_closed_loop_loss():
     assert float(v) < 0.6 * v0, (v0, float(v))
 
 
-def test_ift_backward_matches_recompute_with_obstacles():
-    """The IFT backward (one factorized adjoint solve at the solution,
-    solvers/qp.py::ift_qp_vjp) must match the recompute rule (reverse-mode
-    through the unrolled forward) — including active linearized obstacle
-    rows, where the barrier Hessian has off-diagonal JhᵀhhJh blocks."""
+def _active_qp():
+    """A small QP with a tight h-row per stage, so the barrier is active."""
     import numpy as _np
 
-    from dnn_mppi_mpc_tpu.ops.pallas.riccati_qp import make_vmappable_pallas_qp
-    from dnn_mppi_mpc_tpu.solvers.qp import BoxedQPData
+    from dnn_mppi_mpc.solvers.qp import BoxedQPData
 
     N, nx, nu = 6, 3, 2
     rng = _np.random.default_rng(3)
@@ -209,26 +206,56 @@ def test_ift_backward_matches_recompute_with_obstacles():
         ubx=jnp.full((N + 1, nx), 2.0, f64),
         lbu=jnp.full((N, nu), 0.6, f64),
         ubu=jnp.full((N, nu), 0.6, f64),
-        # a tight h-row per stage so the barrier is genuinely active
         Jh=jnp.asarray(_np.tile(rng.normal(size=(1, 1, nx)), (N + 1, 1, 1)), f64),
         h0=jnp.full((N + 1, 1), 0.15, f64),
     )
-    dx0 = jnp.asarray([0.1, -0.2, 0.05], f64)
+    return qp, jnp.asarray([0.1, -0.2, 0.05], f64)
 
-    def make_loss(backward):
-        solve = make_vmappable_pallas_qp(12, 1.0e-1, 0.35, None, 0.0, True, backward)
 
-        def loss(qxb, dx0_):
-            dX, dU, _ = solve(qp._replace(qx_base=qxb), dx0_)
-            return jnp.sum(dX**2) + jnp.sum(jnp.sin(dU))
+def _qp_loss(backward, qp):
+    from dnn_mppi_mpc.ops.pallas.riccati_qp import make_vmappable_pallas_qp
 
-        return loss
+    solve = make_vmappable_pallas_qp(12, 1.0e-1, 0.35, None, 0.0, True, backward)
 
-    g_ift = jax.grad(make_loss("ift"), argnums=(0, 1))(qp.qx_base, dx0)
-    g_rec = jax.grad(make_loss("recompute"), argnums=(0, 1))(qp.qx_base, dx0)
+    def loss(qxb, dx0_):
+        dX, dU, _ = solve(qp._replace(qx_base=qxb), dx0_)
+        return jnp.sum(dX**2) + jnp.sum(jnp.sin(dU))
+
+    return loss
+
+
+def test_ift_backward_matches_recompute_with_obstacles():
+    """The IFT backward (one factorized adjoint solve at the solution,
+    solvers/qp.py::ift_qp_vjp) must match the recompute rule (reverse-mode
+    through the unrolled forward) — including active linearized obstacle
+    rows, where the barrier Hessian has off-diagonal JhᵀhhJh blocks."""
+    qp, dx0 = _active_qp()
+    g_ift = jax.grad(_qp_loss("ift", qp), argnums=(0, 1))(qp.qx_base, dx0)
+    g_rec = jax.grad(_qp_loss("recompute", qp), argnums=(0, 1))(qp.qx_base, dx0)
     np.testing.assert_allclose(
         np.asarray(g_ift[0]), np.asarray(g_rec[0]), rtol=2e-4, atol=1e-5
     )
     np.testing.assert_allclose(
         np.asarray(g_ift[1]), np.asarray(g_rec[1]), rtol=2e-4, atol=1e-5
     )
+
+
+@pytest.mark.parametrize("backward", ["ift", "recompute"])
+def test_qp_kernel_gradient_matches_finite_differences(backward):
+    """Both gradient rules of the QP kernel against central differences of
+    the kernel's own forward (f64), along a random direction in (qx, dx0)."""
+    qp, dx0 = _active_qp()
+    loss = _qp_loss(backward, qp)
+    g_q, g_x = jax.grad(loss, argnums=(0, 1))(qp.qx_base, dx0)
+    rng = np.random.default_rng(9)
+    vq = jnp.asarray(rng.normal(size=qp.qx_base.shape), qp.qx_base.dtype)
+    vx = jnp.asarray(rng.normal(size=dx0.shape), dx0.dtype)
+    e = 1e-5
+    fd = (
+        float(loss(qp.qx_base + e * vq, dx0 + e * vx))
+        - float(loss(qp.qx_base - e * vq, dx0 - e * vx))
+    ) / (2 * e)
+    ad = float(jnp.sum(g_q * vq) + jnp.sum(g_x * vx))
+    # the IFT rule is exact at a converged solve; 12 barrier iterations
+    # leave a small residual, hence the relative tolerance
+    np.testing.assert_allclose(ad, fd, rtol=2e-2, atol=1e-6)

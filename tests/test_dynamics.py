@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dnn_mppi_mpc_tpu.models import (
+from dnn_mppi_mpc.models import (
     BicycleParams,
     DynamicBicycleParams,
     FourWheelParams,
@@ -115,7 +115,7 @@ def test_rollout_scan_matches_loop():
 def test_irk_linear_high_order_accuracy():
     """GL-4 collocation is order 8: one step on ẋ = Ax ≈ expm(A·dt)·x."""
     import scipy.linalg
-    from dnn_mppi_mpc_tpu.models.integrators import irk_step
+    from dnn_mppi_mpc.models.integrators import irk_step
 
     A = np.array([[0.0, 1.0], [-2.0, -0.4]])
     f = lambda x, u: jnp.asarray(A) @ x
@@ -129,7 +129,7 @@ def test_irk_linear_high_order_accuracy():
 def test_irk_a_stable_where_rk4_diverges():
     """Stiff decay ẋ = −λ(x − u), λ·dt = 20: explicit RK4 blows up
     (|R(−20)| ≫ 1), Gauss-Legendre IRK is A-stable and contracts."""
-    from dnn_mppi_mpc_tpu.models.integrators import irk_step, rk4_step
+    from dnn_mppi_mpc.models.integrators import irk_step, rk4_step
 
     lam = 200.0
     dt = 0.1
@@ -149,8 +149,8 @@ def test_irk_nmpc_stiff_tracks_where_erk_diverges():
     engine tracks — the reason mpc_differential_dynamics.py:198 picks IRK."""
     import dataclasses
 
-    from dnn_mppi_mpc_tpu.config import SQPConfig
-    from dnn_mppi_mpc_tpu.solvers.sqp import NMPCSolver, OCPParams
+    from dnn_mppi_mpc.config import SQPConfig
+    from dnn_mppi_mpc.solvers.sqp import NMPCSolver, OCPParams
 
     # x = (position, velocity-like fast state); fast pole λ = 150
     lam = 150.0
@@ -182,7 +182,7 @@ def test_irk_nmpc_stiff_tracks_where_erk_diverges():
         for _ in range(25):
             u0, st, aux = solver.solve(params, st, x)
             # exact plant via many tiny substeps (ground truth)
-            from dnn_mppi_mpc_tpu.models.integrators import erk_step
+            from dnn_mppi_mpc.models.integrators import erk_step
 
             x = erk_step(f, x, u0, dt, num_steps=50)
             statuses.append(int(aux.status))
@@ -202,7 +202,7 @@ def test_irk_broadcasts_over_batch():
     """IRK must honor the module contract that integrators broadcast over
     leading batch dims — it previously crashed on (B, nx) states
     (round-2 review finding)."""
-    from dnn_mppi_mpc_tpu.models.integrators import discretize, irk_step
+    from dnn_mppi_mpc.models.integrators import discretize, irk_step
 
     f = lambda x, u: jnp.stack(
         [x[..., 1], -4.0 * x[..., 0] - 0.3 * x[..., 1] + u[..., 0]], axis=-1

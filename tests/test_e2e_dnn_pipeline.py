@@ -17,13 +17,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dnn_mppi_mpc_tpu.config import SQPConfig
-from dnn_mppi_mpc_tpu.envs.closed_loop import collect_residual_dataset, run_closed_loop
-from dnn_mppi_mpc_tpu.models.dynamics import residual_dynamics, unicycle
-from dnn_mppi_mpc_tpu.models.integrators import erk_step, euler_step
-from dnn_mppi_mpc_tpu.models.learned import MLP, make_residual_fn
-from dnn_mppi_mpc_tpu.solvers.sqp import NMPCSolver, OCPParams
-from dnn_mppi_mpc_tpu.train.training import TrainConfig, train_residual_model
+from dnn_mppi_mpc.config import SQPConfig
+from dnn_mppi_mpc.envs.closed_loop import collect_residual_dataset, run_closed_loop
+from dnn_mppi_mpc.models.dynamics import residual_dynamics, unicycle
+from dnn_mppi_mpc.models.integrators import erk_step, euler_step
+from dnn_mppi_mpc.models.learned import MLP, make_residual_fn
+from dnn_mppi_mpc.solvers.sqp import NMPCSolver, OCPParams
+from dnn_mppi_mpc.train.training import TrainConfig, train_residual_model
 
 DT = 0.1
 N = 10

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dnn_mppi_mpc_tpu.envs import (
+from dnn_mppi_mpc.envs import (
     Plant,
     ackermann_wheel_speeds,
     chase_obstacles,
@@ -14,8 +14,8 @@ from dnn_mppi_mpc_tpu.envs import (
     drift_obstacles,
     run_closed_loop,
 )
-from dnn_mppi_mpc_tpu.models.dynamics import unicycle
-from dnn_mppi_mpc_tpu.models.integrators import euler_step
+from dnn_mppi_mpc.models.dynamics import unicycle
+from dnn_mppi_mpc.models.integrators import euler_step
 
 
 def test_plant_euler_matches_reference_update():
@@ -125,7 +125,7 @@ def test_collect_residual_dataset_learns_model_error():
 
 def test_lidar_scan_geometry():
     """Beam straight at a circle returns distance-to-surface; misses return max."""
-    from dnn_mppi_mpc_tpu.envs.sensors import goal_relative_obs, lidar_scan
+    from dnn_mppi_mpc.envs.sensors import goal_relative_obs, lidar_scan
 
     pose = jnp.array([0.0, 0.0, 0.0])
     obstacles = jnp.array([[5.0, 0.0, 1.0]])
@@ -146,7 +146,7 @@ def test_lidar_scan_geometry():
 def test_episode_csv_roundtrip():
     import tempfile
 
-    from dnn_mppi_mpc_tpu.utils.logging import load_episode_csv, save_episode_csv
+    from dnn_mppi_mpc.utils.logging import load_episode_csv, save_episode_csv
 
     states = np.random.default_rng(0).normal(size=(12, 3))
     controls = np.random.default_rng(1).normal(size=(12, 2))
@@ -161,10 +161,10 @@ def test_episode_csv_roundtrip():
 def test_on_device_mppi_closed_loop_scan():
     """MPPI controller + plant as one on-device scan (zero host dispatch):
     a whole episode jits and tracks the reference."""
-    from dnn_mppi_mpc_tpu.config import MPPIConfig, MPPIParams
-    from dnn_mppi_mpc_tpu.envs.closed_loop import mppi_controller
-    from dnn_mppi_mpc_tpu.paths.generators import line
-    from dnn_mppi_mpc_tpu.solvers.mppi import MPPISolver, make_tracking_costs
+    from dnn_mppi_mpc.config import MPPIConfig, MPPIParams
+    from dnn_mppi_mpc.envs.closed_loop import mppi_controller
+    from dnn_mppi_mpc.paths.generators import line
+    from dnn_mppi_mpc.solvers.mppi import MPPISolver, make_tracking_costs
 
     cfg = MPPIConfig(num_samples=128, horizon=10, dim_x=3, dim_u=2, dt=0.1)
     params = MPPIParams(
@@ -188,10 +188,10 @@ def test_on_device_mppi_closed_loop_scan():
 
 
 def test_on_device_nmpc_closed_loop_scan():
-    from dnn_mppi_mpc_tpu.config import SQPConfig
-    from dnn_mppi_mpc_tpu.envs.closed_loop import nmpc_controller
-    from dnn_mppi_mpc_tpu.models.integrators import erk_step
-    from dnn_mppi_mpc_tpu.solvers.sqp import NMPCSolver, OCPParams
+    from dnn_mppi_mpc.config import SQPConfig
+    from dnn_mppi_mpc.envs.closed_loop import nmpc_controller
+    from dnn_mppi_mpc.models.integrators import erk_step
+    from dnn_mppi_mpc.solvers.sqp import NMPCSolver, OCPParams
 
     N = 10
     cfg = SQPConfig(N=N, dim_x=3, dim_u=2, dt=0.1, sqp_iters=1, qp_iters=8)
@@ -219,7 +219,7 @@ def test_on_device_nmpc_closed_loop_scan():
 def test_metrics_streaming_from_jitted_loop():
     """jax.debug.callback streams per-tick metrics out of a running scan
     (SURVEY §5.5 — live telemetry the reference's print()-at-end lacks)."""
-    from dnn_mppi_mpc_tpu.envs.closed_loop import run_closed_loop
+    from dnn_mppi_mpc.envs.closed_loop import run_closed_loop
 
     dt = 0.1
     goal = jnp.array([1.0, 0.5])
@@ -262,7 +262,7 @@ def test_metrics_streaming_from_jitted_loop():
 def test_collect_resumable_checkpoints_and_matches(tmp_path):
     """Chunk-level resume: interrupted collection skips finished chunks and
     the result is bit-identical to an uninterrupted run (SURVEY §5.4)."""
-    from dnn_mppi_mpc_tpu.envs.closed_loop import (
+    from dnn_mppi_mpc.envs.closed_loop import (
         collect_residual_dataset_resumable,
     )
 
@@ -306,7 +306,7 @@ def test_collect_resumable_checkpoints_and_matches(tmp_path):
 def test_collect_resumable_invalidates_stale_cache(tmp_path):
     """A cached chunk from a different PRNG key or config tag must be
     recomputed, not silently returned (round-2 review finding)."""
-    from dnn_mppi_mpc_tpu.envs.closed_loop import (
+    from dnn_mppi_mpc.envs.closed_loop import (
         collect_residual_dataset_resumable,
     )
 
@@ -355,8 +355,8 @@ def test_metrics_writer_as_metric_cb(tmp_path):
     (round-2 review finding: json.dumps crashed on device arrays)."""
     import json
 
-    from dnn_mppi_mpc_tpu.envs.closed_loop import run_closed_loop
-    from dnn_mppi_mpc_tpu.utils.logging import MetricsWriter
+    from dnn_mppi_mpc.envs.closed_loop import run_closed_loop
+    from dnn_mppi_mpc.utils.logging import MetricsWriter
 
     dt = 0.1
     step = lambda x, u: euler_step(unicycle, x, u, dt)
@@ -381,7 +381,7 @@ def test_sinusoid_obstacles_per_obstacle_scalars():
     """(n,) amplitudes are per-obstacle, not per-axis: the old trailing-axis
     broadcast was silently wrong at n == 2 and crashed otherwise
     (round-2 review finding)."""
-    from dnn_mppi_mpc_tpu.envs.obstacles import sinusoid_obstacles
+    from dnn_mppi_mpc.envs.obstacles import sinusoid_obstacles
 
     centers = jnp.array([[0.0, 0.0, 0.5], [5.0, 1.0, 0.4], [2.0, -3.0, 0.3]])
     amps = jnp.array([1.0, 2.0, 0.5])
@@ -402,7 +402,7 @@ def test_sinusoid_obstacles_per_obstacle_scalars():
 def test_lidar_full_circle_has_unique_beams():
     """At fov=2π the endpoint beam duplicates beam 0 (−π ≡ +π); the sweep
     must be uniform with no double-counted rearward ray (round-2 review)."""
-    from dnn_mppi_mpc_tpu.envs.sensors import lidar_scan
+    from dnn_mppi_mpc.envs.sensors import lidar_scan
 
     pose = jnp.array([0.0, 0.0, 0.0])
     # one obstacle straight behind: exactly ONE beam should see it at range 2
@@ -423,12 +423,12 @@ def test_with_recovery_resets_wedged_controller():
     nominal sequence, and the loop resumes solving."""
     import dataclasses
 
-    from dnn_mppi_mpc_tpu.config import MPPIConfig, MPPIParams
-    from dnn_mppi_mpc_tpu.envs.closed_loop import recovery_init, with_recovery
-    from dnn_mppi_mpc_tpu.models.dynamics import unicycle
-    from dnn_mppi_mpc_tpu.models.integrators import euler_step
-    from dnn_mppi_mpc_tpu.paths import line
-    from dnn_mppi_mpc_tpu.solvers.mppi import (
+    from dnn_mppi_mpc.config import MPPIConfig, MPPIParams
+    from dnn_mppi_mpc.envs.closed_loop import recovery_init, with_recovery
+    from dnn_mppi_mpc.models.dynamics import unicycle
+    from dnn_mppi_mpc.models.integrators import euler_step
+    from dnn_mppi_mpc.paths import line
+    from dnn_mppi_mpc.solvers.mppi import (
         MPPIState,
         make_tracking_costs,
         mppi_step,
@@ -496,8 +496,8 @@ def test_with_recovery_resets_wedged_controller():
 def test_wheel_plant_matches_unicycle_for_ideal_wheels():
     """gains=1, no lag/delay/slip: IK→FK roundtrip reduces to the unicycle
     Euler step (the forward twin of kinematics.diff_drive_wheel_speeds)."""
-    from dnn_mppi_mpc_tpu.envs.plants import WheelPlant
-    from dnn_mppi_mpc_tpu.models import euler_step, unicycle
+    from dnn_mppi_mpc.envs.plants import WheelPlant
+    from dnn_mppi_mpc.models import euler_step, unicycle
 
     plant = WheelPlant(dt=0.1)
     x0 = jnp.array([0.3, -0.2, 0.7])
@@ -508,7 +508,7 @@ def test_wheel_plant_matches_unicycle_for_ideal_wheels():
 
 
 def test_wheel_plant_lag_delay_cap():
-    from dnn_mppi_mpc_tpu.envs.plants import WheelPlant
+    from dnn_mppi_mpc.envs.plants import WheelPlant
 
     # delay: first command acts one tick late
     plant = WheelPlant(dt=0.1, delay_steps=1)
@@ -535,7 +535,7 @@ def test_wheel_plant_lag_delay_cap():
 def test_wheel_plant_wraps_yaw():
     """PyBullet reports wrapped yaw (getEulerFromQuaternion); so does the
     plant — an integrated yaw walking past ±π re-enters (−π, π]."""
-    from dnn_mppi_mpc_tpu.envs.plants import WheelPlant
+    from dnn_mppi_mpc.envs.plants import WheelPlant
 
     plant = WheelPlant(dt=0.1)
     ps = plant.init(jnp.array([0.0, 0.0, 3.1]))
@@ -546,7 +546,7 @@ def test_wheel_plant_wraps_yaw():
 def test_wheel_plant_diff_gain_calibration():
     """common/diff execution gains scale the two FK modes independently
     (the recorded-run calibration handles of tests/test_golden_nmpc.py)."""
-    from dnn_mppi_mpc_tpu.envs.plants import WheelPlant
+    from dnn_mppi_mpc.envs.plants import WheelPlant
 
     plant = WheelPlant(dt=0.1, common_gain=2.0, diff_gain=0.5)
     ps = plant.step_body(plant.init(jnp.zeros(3)), jnp.array([1.0, 1.0]))

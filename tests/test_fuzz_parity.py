@@ -12,17 +12,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dnn_mppi_mpc_tpu.config import (
+from dnn_mppi_mpc.config import (
     CostAccumulation,
     MPPIConfig,
     MPPIParams,
     SmoothingFilter,
     Temperature,
 )
-from dnn_mppi_mpc_tpu.models.dynamics import unicycle
-from dnn_mppi_mpc_tpu.models.integrators import euler_step
-from dnn_mppi_mpc_tpu.solvers.mppi import MPPISolver, make_tracking_costs
-from dnn_mppi_mpc_tpu.testing.oracle import OracleMPPI
+from dnn_mppi_mpc.models.dynamics import unicycle
+from dnn_mppi_mpc.models.integrators import euler_step
+from dnn_mppi_mpc.solvers.mppi import MPPISolver, make_tracking_costs
+from dnn_mppi_mpc.testing.oracle import OracleMPPI
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -118,13 +118,14 @@ def test_random_config_matches_oracle(seed):
 
 @pytest.mark.parametrize("seed", range(4))
 def test_random_config_fused_epilogue_tick_matches_scan(seed):
-    """Fuzz the fused tick WITH the in-kernel epilogue (filter matmul +
-    update + hold + shift) against the scan engine on random configs —
-    random filter kind/window, temperature convention, Σ, bounds, obstacles.
-    Interpret mode; injected noise for exactness."""
-    from dnn_mppi_mpc_tpu.solvers.mppi import (
+    """Fuzz the tick on the rollout kernel (XLA epilogue: filter, update,
+    hold, shift) against the scan engine on random configs — random filter
+    kind/window, temperature convention, Σ, bounds, obstacles. Interpret
+    mode; injected noise for exactness."""
+    from dnn_mppi_mpc.models import unicycle_tile
+    from dnn_mppi_mpc.solvers.mppi import (
         MPPIState,
-        make_pallas_diffdrive_tick,
+        make_rollout_kernel,
         mppi_step,
     )
 
@@ -176,7 +177,9 @@ def test_random_config_fused_epilogue_tick_matches_scan(seed):
     stage, terminal = make_tracking_costs(
         cfg, collision="none" if params.obstacles is None else "circle"
     )
-    tick = make_pallas_diffdrive_tick(cfg, interpret=True, fuse_epilogue=True)
+    tick = make_rollout_kernel(
+        cfg, unicycle_tile(dt), stage.tracking_spec, interpret=True
+    )
     state = MPPIState(
         u_prev=jnp.asarray(rng.normal(0, 0.2, (T, 2)), jnp.float32),
         waypoint_idx=jnp.zeros((), jnp.int32),
@@ -189,7 +192,7 @@ def test_random_config_fused_epilogue_tick_matches_scan(seed):
     )
     u0_t, st_t, aux_t = jax.jit(
         lambda p, s, x, n: mppi_step(
-            cfg, step_fn, stage, terminal, p, s, x, n, tick_fn=tick
+            cfg, step_fn, stage, terminal, p, s, x, n, rollout_fn=tick
         )
     )(params, state, x0, eps)
     u0_r, st_r, aux_r = jax.jit(

@@ -1,10 +1,9 @@
-"""Parity tests for the generic fused MPPI tick (ops/pallas/generic_tick.py).
+"""Parity tests for the GPU rollout kernel (ops/pallas/rollout.py).
 
-ε-injection mode runs the kernel's exact compute path in the CPU interpreter
-and must reproduce the scan engine (solvers/mppi.py) for *every* model family
-— not just the hand-specialized diff-drive/bicycle kernels: four-wheel torque
-(nx=5, nu=4), kinematic bicycle with wrap-yaw tracking, dynamic bicycle with
-tire slip, and the lift_dynamics adapter over an arbitrary F(x, u).
+The kernel runs in the Pallas interpreter here and must reproduce the scan
+engine (solvers/mppi.py) on injected ε for every model family — unicycle,
+four-wheel torque (nx=5, nu=4), kinematic bicycle with wrap-yaw tracking,
+dynamic bicycle with tire slip — and every collision mode.
 """
 
 from __future__ import annotations
@@ -16,14 +15,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dnn_mppi_mpc_tpu.config import (
+from dnn_mppi_mpc.config import (
     CostAccumulation,
     MPPIConfig,
     MPPIParams,
     SmoothingFilter,
     Temperature,
 )
-from dnn_mppi_mpc_tpu.models import (
+from dnn_mppi_mpc.models import (
     dynamic_bicycle,
     dynamic_bicycle_tile,
     euler_step,
@@ -31,14 +30,13 @@ from dnn_mppi_mpc_tpu.models import (
     four_wheel_torque_tile,
     kinematic_bicycle,
     kinematic_bicycle_tile,
-    lift_dynamics,
     unicycle,
     unicycle_tile,
 )
-from dnn_mppi_mpc_tpu.models.dynamics import BicycleParams
-from dnn_mppi_mpc_tpu.solvers.mppi import (
+from dnn_mppi_mpc.models.dynamics import BicycleParams
+from dnn_mppi_mpc.solvers.mppi import (
     MPPIState,
-    make_generic_fused_tick,
+    make_rollout_kernel,
     make_tracking_costs,
     mppi_step,
 )
@@ -100,12 +98,17 @@ def _state(cfg, seed=0):
     )
 
 
+def _kernel(cfg, tile, stage):
+    """The rollout kernel for these costs, in the Pallas interpreter."""
+    return make_rollout_kernel(cfg, tile, stage.tracking_spec, interpret=True)
+
+
 def _run_both(cfg, params, step_fn, stage, terminal, tick, x0, seed=3):
     eps = _noise(cfg, params, seed=seed)
     state = _state(cfg)
     u0_t, st_t, aux_t = jax.jit(
         lambda p, s, x, n: mppi_step(
-            cfg, step_fn, stage, terminal, p, s, x, n, tick_fn=tick
+            cfg, step_fn, stage, terminal, p, s, x, n, rollout_fn=tick
         )
     )(params, state, x0, eps)
     u0_r, st_r, aux_r = jax.jit(
@@ -146,9 +149,7 @@ def test_generic_matches_scan_unicycle(obstacles, last):
     stage, terminal = make_tracking_costs(
         cfg, collision="circle" if obstacles else "none", robot_radius=0.5
     )
-    tick = make_generic_fused_tick(
-        cfg, unicycle_tile(DT), collision="circle", interpret=True
-    )
+    tick = _kernel(cfg, unicycle_tile(DT), stage)
     _run_both(cfg, params, step_fn, stage, terminal, tick,
               jnp.array([0.1, -0.05, 0.2], jnp.float32))
 
@@ -167,7 +168,7 @@ def test_generic_matches_scan_four_wheel():
     )
     step_fn = lambda x, u: euler_step(four_wheel_torque, x, u, DT)
     stage, terminal = make_tracking_costs(cfg)
-    tick = make_generic_fused_tick(cfg, four_wheel_torque_tile(DT), interpret=True)
+    tick = _kernel(cfg, four_wheel_torque_tile(DT), stage)
     x0 = jnp.array([0.1, -0.05, 0.2, 0.3, 0.05], jnp.float32)
     _run_both(cfg, params, step_fn, stage, terminal, tick, x0)
 
@@ -188,9 +189,7 @@ def test_generic_matches_scan_bicycle_wrap_yaw():
         lambda x_, u_: kinematic_bicycle(x_, u_, bp), x, u, DT
     )
     stage, terminal = make_tracking_costs(cfg, wrap_yaw=True)
-    tick = make_generic_fused_tick(
-        cfg, kinematic_bicycle_tile(DT, 2.5), wrap_yaw=True, interpret=True
-    )
+    tick = _kernel(cfg, kinematic_bicycle_tile(DT, 2.5), stage)
     x0 = jnp.array([0.1, -0.05, -0.4, 1.0], jnp.float32)
     _run_both(cfg, params, step_fn, stage, terminal, tick, x0)
 
@@ -214,51 +213,39 @@ def test_generic_matches_scan_dynamic_bicycle_soft_moving():
     stage, terminal = make_tracking_costs(
         cfg, collision="soft", soft_safety_distance=1.5, soft_weight=60.0
     )
-    tick = make_generic_fused_tick(
-        cfg,
-        dynamic_bicycle_tile(DT),
-        collision="soft",
-        soft_safety_distance=1.5,
-        soft_weight=60.0,
-        interpret=True,
-    )
+    tick = _kernel(cfg, dynamic_bicycle_tile(DT), stage)
     x0 = jnp.array([0.0, 0.0, 0.1, 1.2], jnp.float32)
     _run_both(cfg, params, step_fn, stage, terminal, tick, x0)
 
 
-def test_lift_dynamics_adapter_matches_tile():
-    """lift_dynamics around an arbitrary (..., nx)-style F matches the
-    handwritten tile step through the whole fused tick."""
-    cfg = _cfg(3, 2)
+def test_generic_matches_scan_polygon():
+    """Kinematic bicycle + the race car's 9-point vehicle outline against
+    circle obstacles, wrap-yaw tracking (the race-car configuration)."""
+    cfg = _cfg(4, 2)
     params = MPPIParams(
-        sigma=jnp.array([[0.2, 0.05], [0.05, 0.1]], jnp.float32),
-        stage_weight=jnp.array([4.0, 4.0, 0.5], jnp.float32),
-        terminal_weight=jnp.array([9.0, 9.0, 2.0], jnp.float32),
-        u_min=jnp.array([-1.5, -2.0], jnp.float32),
-        u_max=jnp.array([1.5, 2.0], jnp.float32),
-        ref_path=_path(3),
+        sigma=jnp.array([[0.05, 0.0], [0.0, 0.3]], jnp.float32),
+        stage_weight=jnp.array([6.0, 6.0, 2.0, 1.0], jnp.float32),
+        terminal_weight=jnp.array([10.0, 10.0, 3.0, 1.0], jnp.float32),
+        u_min=jnp.array([-0.5, -3.0], jnp.float32),
+        u_max=jnp.array([0.5, 3.0], jnp.float32),
+        ref_path=_path(4),
+        obstacles=jnp.array([[2.5, 2.0, 0.4], [1.2, -1.5, 0.5]], jnp.float32),
     )
-    step_fn = lambda x, u: euler_step(unicycle, x, u, DT)
-    stage, terminal = make_tracking_costs(cfg)
-    x0 = jnp.array([0.1, -0.05, 0.2], jnp.float32)
-    eps = _noise(cfg, params)
-    state = _state(cfg)
-
-    outs = []
-    for tile in (unicycle_tile(DT), lift_dynamics(step_fn)):
-        tick = make_generic_fused_tick(cfg, tile, interpret=True)
-        u0, st, aux = jax.jit(
-            lambda p, s, x, n, tick=tick: mppi_step(
-                cfg, step_fn, stage, terminal, p, s, x, n, tick_fn=tick
-            )
-        )(params, state, x0, eps)
-        outs.append((np.asarray(u0), np.asarray(aux.costs)))
-    np.testing.assert_allclose(outs[0][0], outs[1][0], rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(outs[0][1], outs[1][1], rtol=1e-5, atol=1e-5)
+    bp = BicycleParams(wheel_base=jnp.asarray(2.5))
+    step_fn = lambda x, u: euler_step(
+        lambda x_, u_: kinematic_bicycle(x_, u_, bp), x, u, DT
+    )
+    stage, terminal = make_tracking_costs(
+        cfg, wrap_yaw=True, collision="polygon", vehicle_length=1.0,
+        vehicle_width=0.6, safety_margin_rate=1.2,
+    )
+    tick = _kernel(cfg, kinematic_bicycle_tile(DT, 2.5), stage)
+    x0 = jnp.array([0.1, -0.05, -0.4, 1.0], jnp.float32)
+    _run_both(cfg, params, step_fn, stage, terminal, tick, x0)
 
 
 def test_generic_matches_scan_large_window():
-    """W > 32 takes the SMEM fori_loop window path (dynamic scalar reads)
+    """W > 32 takes the in-kernel loop window path (dynamic scalar loads)
     instead of the unrolled one — it must reproduce the scan engine too
     (round-2 review: this branch previously had no test at all)."""
     cfg = _cfg(3, 2, waypoint_search_len=48)
@@ -272,22 +259,21 @@ def test_generic_matches_scan_large_window():
     )
     step_fn = lambda x, u: euler_step(unicycle, x, u, DT)
     stage, terminal = make_tracking_costs(cfg)
-    tick = make_generic_fused_tick(cfg, unicycle_tile(DT), interpret=True)
+    tick = _kernel(cfg, unicycle_tile(DT), stage)
     _run_both(cfg, params, step_fn, stage, terminal, tick,
               jnp.array([0.1, -0.05, 0.2], jnp.float32))
 
 
 def test_generic_guards():
     cfg = _cfg(3, 2, num_rollout_repeats=3)
+    stage, _ = make_tracking_costs(cfg)
     with pytest.raises(ValueError, match="num_rollout_repeats"):
-        make_generic_fused_tick(cfg, unicycle_tile(DT))
+        make_rollout_kernel(cfg, unicycle_tile(DT), stage.tracking_spec)
 
 
 def test_generic_rollout_matches_scan_four_wheel():
-    """The rollout-only generic kernel (rollout_fn path, ε injected) matches
-    the scan engine for the four-wheel model."""
-    from dnn_mppi_mpc_tpu.solvers.mppi import make_generic_pallas_rollout
-
+    """The kernel with circle obstacles on the four-wheel model matches the
+    scan engine."""
     cfg = _cfg(5, 4)
     params = MPPIParams(
         sigma=_sigma(4),
@@ -305,10 +291,7 @@ def test_generic_rollout_matches_scan_four_wheel():
     stage, terminal = make_tracking_costs(
         cfg, collision="circle", robot_radius=0.5, safety_margin_rate=1.0
     )
-    rollout = make_generic_pallas_rollout(
-        cfg, four_wheel_torque_tile(DT), collision="circle", interpret=True,
-        safety_margin_rate=1.0,
-    )
+    rollout = _kernel(cfg, four_wheel_torque_tile(DT), stage)
     eps = _noise(cfg, params)
     state = _state(cfg)
     x0 = jnp.array([0.1, -0.05, 0.2, 0.3, 0.05], jnp.float32)
@@ -326,12 +309,13 @@ def test_generic_rollout_matches_scan_four_wheel():
     np.testing.assert_allclose(np.asarray(u0_p), np.asarray(u0_r), rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.skipif(jax.device_count() < 8, reason="needs 8 virtual devices")
 def test_generic_rollout_sharded_matches_unsharded():
-    """Sample-sharded generic rollout under shard_map: the global sample-index
+    """Sample-sharded kernel rollout under shard_map: the global sample-index
     offset must make sharded == unsharded (exploration split over global K)."""
-    from dnn_mppi_mpc_tpu.parallel.sharding import make_mesh, make_sharded_mppi_step
-    from dnn_mppi_mpc_tpu.solvers.mppi import make_generic_pallas_rollout
+    from dnn_mppi_mpc.parallel.sharding import make_mesh, make_sharded_mppi_step
+
+    if jax.device_count() < 8:
+        pytest.skip("needs 8 virtual devices")
 
     cfg = _cfg(5, 4, num_samples=2048)
     params = MPPIParams(
@@ -344,7 +328,7 @@ def test_generic_rollout_sharded_matches_unsharded():
     )
     step_fn = lambda x, u: euler_step(four_wheel_torque, x, u, DT)
     stage, terminal = make_tracking_costs(cfg)
-    rollout = make_generic_pallas_rollout(cfg, four_wheel_torque_tile(DT), interpret=True)
+    rollout = _kernel(cfg, four_wheel_torque_tile(DT), stage)
 
     mesh = make_mesh(("k",))
     sharded = make_sharded_mppi_step(
@@ -371,14 +355,15 @@ def test_generic_rollout_sharded_matches_unsharded():
 
 
 def test_solver_guards():
-    from dnn_mppi_mpc_tpu.solvers.mppi import MPPISolver
+    """use_pallas=True demands the kernel: without a tile form of the
+    dynamics the solver refuses instead of silently running the scan."""
+    from dnn_mppi_mpc.solvers.mppi import MPPISolver
 
     cfg = _cfg(3, 2)
     step_fn = lambda x, u: euler_step(unicycle, x, u, DT)
     stage, terminal = make_tracking_costs(cfg)
     with pytest.raises(ValueError, match="tile_dynamics"):
-        MPPISolver(cfg, step_fn, stage, terminal,
-                   tile_dynamics=unicycle_tile(DT))
+        MPPISolver(cfg, step_fn, stage, terminal, use_pallas=True)
 
 
 def test_generic_guards_weight_mismatch():
@@ -393,11 +378,11 @@ def test_generic_guards_weight_mismatch():
     )
     step_fn = lambda x, u: euler_step(unicycle, x, u, DT)
     stage, terminal = make_tracking_costs(cfg)
-    tick = make_generic_fused_tick(cfg, unicycle_tile(DT), interpret=True)
+    tick = _kernel(cfg, unicycle_tile(DT), stage)
     with pytest.raises(ValueError, match="n_track"):
         jax.jit(
             lambda p, s, x, n: mppi_step(
-                cfg, step_fn, stage, terminal, p, s, x, n, tick_fn=tick
+                cfg, step_fn, stage, terminal, p, s, x, n, rollout_fn=tick
             )
         )(params, _state(cfg), jnp.zeros(3, jnp.float32), _noise(cfg, params))
 
@@ -415,7 +400,9 @@ def test_generic_fuzz_random_configs(seed):
     Tf = int(rng.choice([5, 10]))
     dtf = float(rng.uniform(0.03, 0.12))
     wrap = bool(rng.choice([False, True])) and n_track >= 3
-    collision = str(rng.choice(["none", "circle", "soft"]))
+    collision = str(rng.choice(["none", "circle", "soft", "polygon"]))
+    if collision == "polygon" and nx < 3:
+        collision = "circle"
     last = bool(rng.choice([False, True]))
     moving = collision != "none" and bool(rng.choice([False, True]))
 
@@ -499,16 +486,7 @@ def test_generic_fuzz_random_configs(seed):
         soft_safety_distance=1.2,
         soft_weight=40.0,
     )
-    tick = make_generic_fused_tick(
-        cfg,
-        tile,
-        wrap_yaw=wrap,
-        collision=collision if collision != "none" else "circle",
-        robot_radius=0.4,
-        soft_safety_distance=1.2,
-        soft_weight=40.0,
-        interpret=True,
-    )
+    tick = _kernel(cfg, tile, stage)
     eps = jnp.asarray(
         rng.multivariate_normal(np.zeros(nu), np.asarray(sigma), (Kf, Tf)),
         jnp.float32,
@@ -520,7 +498,7 @@ def test_generic_fuzz_random_configs(seed):
     x0 = jnp.asarray(rng.uniform(-0.4, 0.4, nx), jnp.float32)
     u0_t, _, aux_t = jax.jit(
         lambda p, s, x, n: mppi_step(
-            cfg, step_fn, stage, terminal, p, s, x, n, tick_fn=tick
+            cfg, step_fn, stage, terminal, p, s, x, n, rollout_fn=tick
         )
     )(params, state, x0, eps)
     u0_r, _, aux_r = jax.jit(
@@ -534,12 +512,14 @@ def test_generic_fuzz_random_configs(seed):
     np.testing.assert_allclose(np.asarray(u0_t), np.asarray(u0_r), rtol=2e-4, atol=2e-5)
 
 
-def test_generic_fused_epilogue_matches_scan():
-    """fuse_epilogue=True on the generic kernel: the in-kernel filter matmul
-    + update + finite-hold + shift (shared fused_epilogue_block) reproduces
-    the XLA tail for arbitrary-dynamics ticks — here the four-wheel torque
-    model (nu=4: the epilogue block must handle nu > 2 row layouts)."""
-    cfg = _cfg(5, 4)
+@pytest.mark.parametrize("K_odd", [31, 33, 100])
+def test_generic_k_padding_matches_scan(K_odd):
+    """K that is not a multiple of the kernel's sample block: the wrapper
+    pads ε to the block and slices the padded tail off S."""
+    from dnn_mppi_mpc.ops.pallas.rollout import BLOCK_K
+
+    assert K_odd % BLOCK_K != 0
+    cfg = _cfg(5, 4, num_samples=K_odd)
     params = MPPIParams(
         sigma=jnp.asarray(np.diag([0.2, 0.2, 0.15, 0.15]), jnp.float32),
         stage_weight=jnp.array([4.0, 4.0, 0.5], jnp.float32),
@@ -550,9 +530,96 @@ def test_generic_fused_epilogue_matches_scan():
     )
     step_fn = lambda x, u: euler_step(four_wheel_torque, x, u, DT)
     stage, terminal = make_tracking_costs(cfg)
-    tick = make_generic_fused_tick(
-        cfg, four_wheel_torque_tile(DT), interpret=True, fuse_epilogue=True
+    tick = _kernel(cfg, four_wheel_torque_tile(DT), stage)
+    rng = np.random.default_rng(K_odd)
+    eps = jnp.asarray(rng.multivariate_normal(np.zeros(4), np.asarray(params.sigma),
+                                              (K_odd, T)), jnp.float32)
+    x0 = jnp.array([0.1, -0.05, 0.2, 0.0, 0.0], jnp.float32)
+    state = _state(cfg)
+    out_k = mppi_step(cfg, step_fn, stage, terminal, params, state, x0, eps, rollout_fn=tick)
+    out_r = mppi_step(cfg, step_fn, stage, terminal, params, state, x0, eps)
+    assert out_k[2].costs.shape == (K_odd,)
+    np.testing.assert_allclose(
+        np.asarray(out_k[2].costs), np.asarray(out_r[2].costs), rtol=3e-4, atol=3e-4
     )
-    assert tick.fused_epilogue
+    np.testing.assert_allclose(np.asarray(out_k[0]), np.asarray(out_r[0]), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "collision,moving",
+    [
+        ("none", False),
+        ("circle", False),
+        ("circle", True),
+        ("soft", False),
+        ("soft", True),
+        ("polygon", False),
+        ("polygon", True),
+    ],
+)
+def test_kernel_matches_scan_per_collision_mode(collision, moving):
+    """Every collision mode, with and without in-rollout obstacle drift, on
+    the kinematic bicycle with wrap-yaw tracking and LAST accumulation."""
+    cfg = _cfg(4, 2, accumulation=CostAccumulation.LAST)
+    params = MPPIParams(
+        sigma=jnp.array([[0.05, 0.0], [0.0, 0.3]], jnp.float32),
+        stage_weight=jnp.array([6.0, 6.0, 2.0, 1.0], jnp.float32),
+        terminal_weight=jnp.array([10.0, 10.0, 3.0, 1.0], jnp.float32),
+        u_min=jnp.array([-0.5, -3.0], jnp.float32),
+        u_max=jnp.array([0.5, 3.0], jnp.float32),
+        ref_path=_path(4),
+        obstacles=jnp.array([[2.0, 1.6, 0.4], [1.0, -1.2, 0.5]], jnp.float32),
+        obstacle_velocities=(
+            jnp.array([[-0.5, 0.2], [0.3, 0.4]], jnp.float32) if moving else None
+        ),
+    )
+    bp = BicycleParams(wheel_base=jnp.asarray(2.5))
+    step_fn = lambda x, u: euler_step(
+        lambda x_, u_: kinematic_bicycle(x_, u_, bp), x, u, DT
+    )
+    stage, terminal = make_tracking_costs(
+        cfg, wrap_yaw=True, collision=collision, robot_radius=0.3,
+        vehicle_length=1.0, vehicle_width=0.6, safety_margin_rate=1.2,
+        soft_safety_distance=1.0, soft_weight=30.0,
+    )
+    tick = _kernel(cfg, kinematic_bicycle_tile(DT, 2.5), stage)
     _run_both(cfg, params, step_fn, stage, terminal, tick,
-              jnp.array([0.1, -0.05, 0.2, 0.0, 0.0], jnp.float32))
+              jnp.array([0.1, -0.05, -0.4, 1.0], jnp.float32), seed=11)
+
+
+def test_kernel_fleet_per_member_paths_matches_scan():
+    """A vmapped fleet (the kernel gains a grid axis per member) with its own
+    reference path, state and ε per member equals per-member scan ticks."""
+    cfg = _cfg(3, 2)
+    base = MPPIParams(
+        sigma=jnp.array([[0.2, 0.05], [0.05, 0.1]], jnp.float32),
+        stage_weight=jnp.array([4.0, 4.0, 0.5], jnp.float32),
+        terminal_weight=jnp.array([9.0, 9.0, 2.0], jnp.float32),
+        u_min=jnp.array([-1.5, -2.0], jnp.float32),
+        u_max=jnp.array([1.5, 2.0], jnp.float32),
+        ref_path=_path(3),
+    )
+    step_fn = lambda x, u: euler_step(unicycle, x, u, DT)
+    stage, terminal = make_tracking_costs(cfg)
+    tick = _kernel(cfg, unicycle_tile(DT), stage)
+    B = 3
+    rng = np.random.default_rng(21)
+    paths = jnp.stack([base.ref_path + 0.2 * b for b in range(B)])
+    x0s = jnp.asarray(rng.uniform(-0.3, 0.3, (B, 3)), jnp.float32)
+    eps = jnp.asarray(
+        rng.multivariate_normal(np.zeros(2), np.asarray(base.sigma), (B, K, T)),
+        jnp.float32,
+    )
+    state = _state(cfg)
+
+    def member(path, x0, e, rollout_fn):
+        p = dataclasses.replace(base, ref_path=path)
+        return mppi_step(cfg, step_fn, stage, terminal, p, state, x0, e,
+                         rollout_fn=rollout_fn)
+
+    u_k, _, aux_k = jax.jit(jax.vmap(lambda *a: member(*a, tick)))(paths, x0s, eps)
+    u_r, _, aux_r = jax.jit(jax.vmap(lambda *a: member(*a, None)))(paths, x0s, eps)
+    np.testing.assert_allclose(
+        np.asarray(aux_k.costs), np.asarray(aux_r.costs), rtol=3e-4, atol=3e-4
+    )
+    np.testing.assert_allclose(np.asarray(u_k), np.asarray(u_r), rtol=1e-4, atol=1e-5)

@@ -3,7 +3,7 @@ recorded dataset (saved_data/*.npy — the 4149-sample Husky NMPC run produced b
 train/bullet_mpc_differential_drive.py:334-336).
 
 Skipped when the reference checkout is not present. This validates that the
-TPU pipeline consumes the reference's real data layout end-to-end and reaches
+JAX pipeline consumes the reference's real data layout end-to-end and reaches
 a low validation MSE, standing in for the train_diff_mlp.py run whose final
 metrics the reference never recorded (BASELINE.md).
 """
@@ -38,8 +38,8 @@ def test_reference_trace_shapes():
 
 @pytest.mark.slow
 def test_train_residual_on_reference_trace():
-    from dnn_mppi_mpc_tpu.models.learned import MLP
-    from dnn_mppi_mpc_tpu.train.training import TrainConfig, train_residual_model
+    from dnn_mppi_mpc.models.learned import MLP
+    from dnn_mppi_mpc.train.training import TrainConfig, train_residual_model
 
     states, controls, errors = _load()
     model = MLP(out_dim=3, hidden=128, depth=2)

@@ -110,8 +110,8 @@ def test_full_protocol_replay():
     actuation-level WheelPlant, must beat the recorded run's own metrics."""
     import dataclasses
 
-    from dnn_mppi_mpc_tpu.envs.plants import WheelPlant
-    from dnn_mppi_mpc_tpu.presets import diff_drive_nmpc
+    from dnn_mppi_mpc.envs.plants import WheelPlant
+    from dnn_mppi_mpc.presets import diff_drive_nmpc
 
     s_rec, c_rec, e_rec = _trace()
     b = _series_bounds(s_rec, e_rec)

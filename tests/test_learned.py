@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dnn_mppi_mpc_tpu.models.dynamics import residual_dynamics, unicycle
-from dnn_mppi_mpc_tpu.models.learned import (
+from dnn_mppi_mpc.models.dynamics import residual_dynamics, unicycle
+from dnn_mppi_mpc.models.learned import (
     MLP,
     ResNet1D,
     Standardizer,
     make_residual_fn,
 )
-from dnn_mppi_mpc_tpu.train.training import TrainConfig, train_residual_model
+from dnn_mppi_mpc.train.training import TrainConfig, train_residual_model
 
 
 def test_mlp_zero_init_head_outputs_zero():
@@ -98,7 +98,7 @@ def test_training_learns_synthetic_residual():
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    from dnn_mppi_mpc_tpu.train.checkpoint import load_checkpoint, save_checkpoint
+    from dnn_mppi_mpc.train.checkpoint import load_checkpoint, save_checkpoint
 
     model = MLP(out_dim=3, hidden=16, depth=1)
     params = model.init(jax.random.PRNGKey(0), jnp.ones((1, 5)))
@@ -138,7 +138,7 @@ def test_full_train_state_checkpoint_roundtrip(tmp_path):
     the resume capability the reference lacks (SURVEY §5.4)."""
     import dataclasses
 
-    from dnn_mppi_mpc_tpu.train.checkpoint import load_checkpoint, save_checkpoint
+    from dnn_mppi_mpc.train.checkpoint import load_checkpoint, save_checkpoint
 
     rng = np.random.default_rng(3)
     states = rng.normal(size=(300, 3)).astype(np.float32)

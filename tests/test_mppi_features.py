@@ -7,15 +7,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from dnn_mppi_mpc_tpu.config import (
+from dnn_mppi_mpc.config import (
     MPPIConfig,
     MPPIParams,
     SmoothingFilter,
     Temperature,
 )
-from dnn_mppi_mpc_tpu.models.dynamics import unicycle
-from dnn_mppi_mpc_tpu.models.integrators import euler_step
-from dnn_mppi_mpc_tpu.solvers.mppi import (
+from dnn_mppi_mpc.models.dynamics import unicycle
+from dnn_mppi_mpc.models.integrators import euler_step
+from dnn_mppi_mpc.solvers.mppi import (
     MPPISolver,
     MPPIState,
     make_tracking_costs,
@@ -163,8 +163,8 @@ def test_status_flags_end_of_path_and_nonfinite():
 
 
 def test_nmpc_status_nonfinite_guard():
-    from dnn_mppi_mpc_tpu.config import SQPConfig
-    from dnn_mppi_mpc_tpu.solvers.sqp import NMPCSolver, OCPParams
+    from dnn_mppi_mpc.config import SQPConfig
+    from dnn_mppi_mpc.solvers.sqp import NMPCSolver, OCPParams
 
     N = 8
     cfg = SQPConfig(N=N, dim_x=3, dim_u=2, dt=0.1, sqp_iters=1, qp_iters=8)
@@ -186,56 +186,40 @@ def test_nmpc_status_nonfinite_guard():
 
 
 def test_solver_forwards_collision_to_fused_tick(monkeypatch):
-    """MPPISolver must pass collision/soft settings through to the fused tick
-    factories — silently defaulting to hard circle penalties diverged from
-    the bound soft cost functions (round-2 review finding)."""
-    import dnn_mppi_mpc_tpu.solvers.mppi as m
-    from dnn_mppi_mpc_tpu.models import euler_step, unicycle, unicycle_tile
+    """The kernel MPPISolver builds gets the bound costs' own constants
+    (collision mode, soft distance and weight) — a kernel on default
+    settings would silently compute another cost than the scan path."""
+    import dnn_mppi_mpc.solvers.mppi as m
+    from dnn_mppi_mpc.models import euler_step, unicycle, unicycle_tile
 
     cfg = MPPIConfig(
         num_samples=128, horizon=8, dim_x=3, dim_u=2, dt=0.05,
         waypoint_search_len=4,
     )
     step_fn = lambda x, u: euler_step(unicycle, x, u, cfg.dt)
-    stage, terminal = m.make_tracking_costs(cfg, collision="soft")
+    stage, terminal = m.make_tracking_costs(
+        cfg, collision="soft", soft_safety_distance=1.5, soft_weight=50.0
+    )
 
     captured = {}
 
-    def fake_diffdrive_factory(cfg_, robot_radius=0.5, **kw):
-        captured.update(kw)
+    def fake_factory(cfg_, tile, spec, **kw):
+        captured["spec"] = spec
         return lambda *a, **k: None
 
-    monkeypatch.setattr(m, "make_pallas_diffdrive_tick", fake_diffdrive_factory)
-    m.MPPISolver(
-        cfg, step_fn, stage, terminal, fused_tick=True,
-        collision="soft", soft_safety_distance=1.5, soft_weight=50.0,
-    )
-    assert captured["collision"] == "soft"
-    assert captured["soft_safety_distance"] == 1.5
-    assert captured["soft_weight"] == 50.0
-
-    captured.clear()
-
-    def fake_generic_factory(cfg_, tile, **kw):
-        captured.update(kw)
-        return lambda *a, **k: None
-
-    monkeypatch.setattr(m, "make_generic_fused_tick", fake_generic_factory)
-    m.MPPISolver(
-        cfg, step_fn, stage, terminal, fused_tick=True,
-        tile_dynamics=unicycle_tile(cfg.dt),
-        collision="soft", soft_safety_distance=1.5, soft_weight=50.0,
-    )
-    assert captured["collision"] == "soft"
-    assert captured["soft_safety_distance"] == 1.5
-    assert captured["soft_weight"] == 50.0
+    monkeypatch.setattr(m, "platform", lambda: "gpu")
+    monkeypatch.setattr(m, "make_rollout_kernel", fake_factory)
+    m.MPPISolver(cfg, step_fn, stage, terminal, tile_dynamics=unicycle_tile(cfg.dt))
+    assert captured["spec"].collision == "soft"
+    assert captured["spec"].soft_safety_distance == 1.5
+    assert captured["spec"].soft_weight == 50.0
 
 
 def test_mppi_step_accepts_non_array_model_params():
     """MPPIParams.model_params is Optional[object]; a Python-scalar leaf must
     not crash the tick's dtype unification (round-2 review finding)."""
-    from dnn_mppi_mpc_tpu.models import euler_step, unicycle
-    from dnn_mppi_mpc_tpu.solvers.mppi import (
+    from dnn_mppi_mpc.models import euler_step, unicycle
+    from dnn_mppi_mpc.solvers.mppi import (
         MPPISolver,
         MPPIState,
         make_tracking_costs,
@@ -270,13 +254,14 @@ def test_control_weight_adds_exact_action_cost():
     clamped action to each sample's cost — the pytorch_mppi spec's
     control_cost = aᵀ·diag(R)·a (test/test_mppi_diff_obs.py:48-53). Verified
     against a hand-computed term (parity between engine paths alone would
-    cancel a shared sign/factor error), on both the scan path and the fused
-    tick (interpret mode)."""
+    cancel a shared sign/factor error), on both the scan path and the
+    rollout kernel (interpret mode)."""
     import dataclasses as _dc
 
-    from dnn_mppi_mpc_tpu.solvers.mppi import (
+    from dnn_mppi_mpc.models import unicycle_tile
+    from dnn_mppi_mpc.solvers.mppi import (
         MPPIState,
-        make_pallas_diffdrive_tick,
+        make_rollout_kernel,
         mppi_step,
     )
 
@@ -306,12 +291,14 @@ def test_control_weight_adds_exact_action_cost():
 
     for maker in ("scan", "tick"):
         tick = (
-            make_pallas_diffdrive_tick(cfg, interpret=True)
+            make_rollout_kernel(
+                cfg, unicycle_tile(DT), stage.tracking_spec, interpret=True
+            )
             if maker == "tick"
             else None
         )
         run = lambda p: mppi_step(
-            cfg, step_fn, stage, terminal, p, state, x0, eps, tick_fn=tick
+            cfg, step_fn, stage, terminal, p, state, x0, eps, rollout_fn=tick
         )
         _, _, aux_base = jax.jit(run)(params)
         _, _, aux_cw = jax.jit(run)(params_cw)

@@ -15,18 +15,18 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from dnn_mppi_mpc_tpu.config import MPPIConfig, MPPIParams
-from dnn_mppi_mpc_tpu.envs.closed_loop import (
+from dnn_mppi_mpc.config import MPPIConfig, MPPIParams
+from dnn_mppi_mpc.envs.closed_loop import (
     collect_residual_dataset,
     mppi_controller,
     run_closed_loop,
 )
-from dnn_mppi_mpc_tpu.models.dynamics import unicycle
-from dnn_mppi_mpc_tpu.models.integrators import euler_step
-from dnn_mppi_mpc_tpu.models.learned import MLP, make_residual_fn
-from dnn_mppi_mpc_tpu.paths import line
-from dnn_mppi_mpc_tpu.solvers.mppi import MPPISolver, make_tracking_costs
-from dnn_mppi_mpc_tpu.train.training import TrainConfig, train_residual_model
+from dnn_mppi_mpc.models.dynamics import unicycle
+from dnn_mppi_mpc.models.integrators import euler_step
+from dnn_mppi_mpc.models.learned import MLP, make_residual_fn
+from dnn_mppi_mpc.paths import line
+from dnn_mppi_mpc.solvers.mppi import MPPISolver, make_tracking_costs
+from dnn_mppi_mpc.train.training import TrainConfig, train_residual_model
 
 DT = 0.05
 

@@ -11,17 +11,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dnn_mppi_mpc_tpu.config import (
+from dnn_mppi_mpc.config import (
     CostAccumulation,
     MPPIConfig,
     MPPIParams,
     SmoothingFilter,
     Temperature,
 )
-from dnn_mppi_mpc_tpu.models.dynamics import unicycle
-from dnn_mppi_mpc_tpu.models.integrators import euler_step
-from dnn_mppi_mpc_tpu.solvers.mppi import MPPISolver, MPPIState, make_tracking_costs
-from dnn_mppi_mpc_tpu.testing.oracle import OracleMPPI
+from dnn_mppi_mpc.models.dynamics import unicycle
+from dnn_mppi_mpc.models.integrators import euler_step
+from dnn_mppi_mpc.solvers.mppi import MPPISolver, MPPIState, make_tracking_costs
+from dnn_mppi_mpc.testing.oracle import OracleMPPI
 
 K, T = 100, 10
 DT = 0.1
@@ -174,9 +174,9 @@ def test_exploration_split_pure_noise_tail():
     import dataclasses
 
     cfg2 = dataclasses.replace(cfg, exploration=0.3)
-    from dnn_mppi_mpc_tpu.solvers.mppi import mppi_step
-    from dnn_mppi_mpc_tpu.models.integrators import euler_step as es
-    from dnn_mppi_mpc_tpu.solvers.mppi import make_tracking_costs as mk
+    from dnn_mppi_mpc.solvers.mppi import mppi_step
+    from dnn_mppi_mpc.models.integrators import euler_step as es
+    from dnn_mppi_mpc.solvers.mppi import make_tracking_costs as mk
 
     stage, terminal = mk(cfg2)
     state = MPPIState.init(cfg2)

@@ -11,18 +11,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dnn_mppi_mpc_tpu.config import (
+from dnn_mppi_mpc.config import (
     CostAccumulation,
     MPPIConfig,
     MPPIParams,
     SmoothingFilter,
     Temperature,
 )
-from dnn_mppi_mpc_tpu.models.dynamics import BicycleParams, kinematic_bicycle
-from dnn_mppi_mpc_tpu.models.integrators import euler_step
-from dnn_mppi_mpc_tpu.solvers.mppi import MPPISolver, make_tracking_costs
-from dnn_mppi_mpc_tpu.paths.generators import lemniscate_with_speed
-from dnn_mppi_mpc_tpu.testing.oracle import OracleRacecarMPPI
+from dnn_mppi_mpc.models.dynamics import BicycleParams, kinematic_bicycle
+from dnn_mppi_mpc.models.integrators import euler_step
+from dnn_mppi_mpc.solvers.mppi import MPPISolver, make_tracking_costs
+from dnn_mppi_mpc.paths.generators import lemniscate_with_speed
+from dnn_mppi_mpc.testing.oracle import OracleRacecarMPPI
 
 K, T, DT = 100, 10, 0.05
 
@@ -128,9 +128,9 @@ def test_racecar_tracks_lemniscate_closed_loop():
     """Behavioral: the race car follows the lemniscate (cross-track bounded)
     over a sustained closed loop — the open-loop demo of
     mppi_race_car_obstacle.py:324-343 upgraded to feedback."""
-    from dnn_mppi_mpc_tpu.presets import racecar_mppi
-    from dnn_mppi_mpc_tpu.paths.generators import lemniscate_with_speed
-    from dnn_mppi_mpc_tpu.models.dynamics import BicycleParams, kinematic_bicycle
+    from dnn_mppi_mpc.presets import racecar_mppi
+    from dnn_mppi_mpc.paths.generators import lemniscate_with_speed
+    from dnn_mppi_mpc.models.dynamics import BicycleParams, kinematic_bicycle
 
     ref = lemniscate_with_speed(10.0, 200, speed=4.0)
     solver, params = racecar_mppi(ref, num_samples=512, horizon=20)

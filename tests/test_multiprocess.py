@@ -3,9 +3,9 @@
 Launches examples/scaling_run.py as TWO OS processes with 4 virtual CPU
 devices each: jax.distributed.initialize over a localhost coordinator, Gloo
 cross-process collectives, and the sample-sharded MPPI step running on an
-8-device global mesh that spans both controllers — the exact code path a
-TPU pod uses (SURVEY §5.8), one level stronger than the in-process virtual
-mesh the rest of the suite exercises.
+8-device global mesh that spans both controllers — the code path a
+multi-host GPU job uses (SURVEY §5.8), one level stronger than the
+in-process virtual mesh the rest of the suite exercises.
 
 Regression context (round 2): this path was broken three separate ways —
 cluster auto-detection hanging in containers (fixed by
@@ -49,7 +49,7 @@ def _run_scaling_job(n_proc, devices_per_proc, extra_args=(), timeout=420):
         "--num-processes", str(n_proc),
         "--k-per-device", "32",
         "--horizon", "5",
-        "--chain", "2", "4",
+        "--chain", "4",
         "--reps", "1",
         *extra_args,
     ]
@@ -100,9 +100,8 @@ def test_four_process_sharded_mppi_scaling_artifact(tmp_path):
     """4 controllers x 2 devices — the multi-host rehearsal one level beyond
     the two-process job (round-4 verdict #7): an 8-device global mesh spans
     FOUR jax.distributed processes, per-tick collective latency is timed
-    separately, and the summary carries every field the checked-in
-    virtual-mesh artifact (docs/assets/scaling_virtual_r5.json) records, so
-    a future real-pod run diffs 1:1 against this rehearsal."""
+    separately, and the summary carries every field a multi-host GPU run
+    records, so such a run diffs 1:1 against this rehearsal."""
     out = tmp_path / "scaling.json"
     summary = _run_scaling_job(4, 2, extra_args=["--out", str(out)], timeout=600)
     assert summary["metric"] == "mppi_weak_scaling_efficiency"
@@ -110,10 +109,8 @@ def test_four_process_sharded_mppi_scaling_artifact(tmp_path):
     assert [s["devices"] for s in summary["scales"]] == [4, 8]
     for s in summary["scales"]:
         assert s["solves_per_s"] > 0
-        # collective-only timing path executed (at this toy scale the slope
-        # over two short Gloo-noisy chains can legitimately round to 0.0,
-        # so only presence/finiteness is asserted — magnitudes belong to
-        # the real-pod run this artifact is diffed against)
+        # collective-only timing path executed (at this toy scale on Gloo
+        # only presence is asserted — magnitudes belong to a GPU run)
         assert isinstance(s["collective_per_tick_ms"], float)
     assert set(summary["efficiency"]) == {"4", "8"}
     # --out wrote the same summary (the artifact-generation path)
@@ -130,14 +127,14 @@ def test_package_import_is_backend_clean():
     independent of suite import order."""
     code = """
 import jax
-import dnn_mppi_mpc_tpu
-import dnn_mppi_mpc_tpu.solvers, dnn_mppi_mpc_tpu.solvers.cem
-import dnn_mppi_mpc_tpu.presets, dnn_mppi_mpc_tpu.paths
-import dnn_mppi_mpc_tpu.envs.closed_loop, dnn_mppi_mpc_tpu.envs.sensors
-import dnn_mppi_mpc_tpu.train.training, dnn_mppi_mpc_tpu.train.rl
-import dnn_mppi_mpc_tpu.parallel.sharding, dnn_mppi_mpc_tpu.parallel.distributed
-import dnn_mppi_mpc_tpu.ops.filters, dnn_mppi_mpc_tpu.ops.costs
-import dnn_mppi_mpc_tpu.testing.oracle
+import dnn_mppi_mpc
+import dnn_mppi_mpc.solvers, dnn_mppi_mpc.solvers.cem
+import dnn_mppi_mpc.presets, dnn_mppi_mpc.paths
+import dnn_mppi_mpc.envs.closed_loop, dnn_mppi_mpc.envs.sensors
+import dnn_mppi_mpc.train.training, dnn_mppi_mpc.train.rl
+import dnn_mppi_mpc.parallel.sharding, dnn_mppi_mpc.parallel.distributed
+import dnn_mppi_mpc.ops.filters, dnn_mppi_mpc.ops.costs
+import dnn_mppi_mpc.testing.oracle
 jax.distributed.initialize("localhost:%d", num_processes=1, process_id=0,
                            cluster_detection_method="deactivate")
 print("CLEAN")

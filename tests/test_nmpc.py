@@ -11,17 +11,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dnn_mppi_mpc_tpu.config import SQPConfig
-from dnn_mppi_mpc_tpu.models.dynamics import (
+from dnn_mppi_mpc.config import SQPConfig
+from dnn_mppi_mpc.models.dynamics import (
     four_wheel_torque,
     kinematic_bicycle,
     residual_dynamics,
     unicycle,
     BicycleParams,
 )
-from dnn_mppi_mpc_tpu.models.integrators import erk_step
-from dnn_mppi_mpc_tpu.models.learned import MLP, make_residual_fn
-from dnn_mppi_mpc_tpu.solvers.sqp import (
+from dnn_mppi_mpc.models.integrators import erk_step
+from dnn_mppi_mpc.models.learned import MLP, make_residual_fn
+from dnn_mppi_mpc.solvers.sqp import (
     NMPCSolver,
     NMPCState,
     OCPParams,
@@ -241,15 +241,14 @@ def test_batched_nmpc_fleet_matches_single():
 
 def test_batched_fleet_works_with_pallas_qp_backend():
     """A qp_backend="pallas" solver must still serve fleets: under vmap the
-    custom_vmap rule dispatches the lane-batched fused QP kernel (fleet
-    members on the 128 VPU lanes, ops/pallas/riccati_qp.py) with identical
-    per-member results."""
+    custom_vmap rule dispatches the fleet QP kernel (one member per thread,
+    ops/pallas/riccati_qp.py) with identical per-member results."""
     N, dt = 10, 0.1
     cfg = SQPConfig(
         N=N, dim_x=3, dim_u=2, dt=dt, sqp_iters=1, qp_iters=8,
         qp_backend="pallas",
     )
-    solver = NMPCSolver(cfg, unicycle)
+    solver = NMPCSolver(cfg, unicycle, interpret=True)
     B = 3
     goals = jnp.asarray([[2.0, 1.0, 0.0], [1.0, -1.0, 0.0], [-1.5, 0.5, 0.0]])
     x0s = jnp.asarray(

@@ -8,20 +8,20 @@ import numpy as np
 import pytest
 from scipy.signal import savgol_filter as scipy_savgol
 
-from dnn_mppi_mpc_tpu.ops.costs import (
+from dnn_mppi_mpc.ops.costs import (
     circle_robot_collision,
     control_energy_cost,
     einsum_quadratic_cost,
     soft_obstacle_cost,
     vehicle_polygon_collision,
 )
-from dnn_mppi_mpc_tpu.ops.filters import (
+from dnn_mppi_mpc.ops.filters import (
     moving_average_edge,
     moving_average_padded,
     savgol_filter,
 )
-from dnn_mppi_mpc_tpu.ops.sampling import sample_noise, sigma_inverse
-from dnn_mppi_mpc_tpu.ops.waypoints import nearest_waypoint
+from dnn_mppi_mpc.ops.sampling import sample_noise, sigma_inverse
+from dnn_mppi_mpc.ops.waypoints import nearest_waypoint
 
 
 def _ref_moving_average_edge(xx, window_size):
@@ -101,7 +101,7 @@ def test_savgol_matches_scipy(T, w, p):
 def test_filter_matrix_equals_op_path(kind, T, w, p):
     """apply_filter's hot path is one precomputed (T, T) matmul; pin it to the
     reference-semantics op implementations (linear filters → exact matrix)."""
-    from dnn_mppi_mpc_tpu.ops.filters import apply_filter, filter_matrix
+    from dnn_mppi_mpc.ops.filters import apply_filter, filter_matrix
 
     rng = np.random.default_rng(7)
     x = rng.normal(size=(T, 2))

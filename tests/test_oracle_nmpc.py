@@ -1,7 +1,7 @@
 """Per-tick NMPC parity against the f64 acados-semantics SQP-RTI oracle.
 
 The BASELINE accuracy gate "match acados NMPC within tolerance", closed
-tightly: :mod:`dnn_mppi_mpc_tpu.testing.oracle_nmpc` re-derives the acados
+tightly: :mod:`dnn_mppi_mpc.testing.oracle_nmpc` re-derives the acados
 tick (ERK(4,3) sensitivities, Gauss-Newton, exact condensed QP, full-step
 RTI, warm start) in scalar f64 numpy with no shared code, and the JAX
 engine is locked-step against it — at every tick of a closed loop both
@@ -38,15 +38,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dnn_mppi_mpc_tpu.config import SQPConfig
-from dnn_mppi_mpc_tpu.models.dynamics import unicycle
-from dnn_mppi_mpc_tpu.solvers.sqp import (
+from dnn_mppi_mpc.config import SQPConfig
+from dnn_mppi_mpc.models.dynamics import unicycle
+from dnn_mppi_mpc.solvers.sqp import (
     NMPCSolver,
     NMPCState,
     OCPParams,
     circle_obstacle_h,
 )
-from dnn_mppi_mpc_tpu.testing import oracle_nmpc as onp
+from dnn_mppi_mpc.testing import oracle_nmpc as onp
 
 
 def _lockstep_max_diff(rec, solver, params, ticks, dtype, moving_p=False):
@@ -257,8 +257,8 @@ def test_irk_engine_matches_oracle_integration_and_sensitivities():
     jacfwd-through-Newton equals complex-step-through-fixed-point — the
     implicit-integrator half of the acados parity story
     (mpc_differential_dynamics.py:198 sim_method: IRK, stages=4, steps=3)."""
-    from dnn_mppi_mpc_tpu.models.dynamics import four_wheel_torque
-    from dnn_mppi_mpc_tpu.models.integrators import irk_step
+    from dnn_mppi_mpc.models.dynamics import four_wheel_torque
+    from dnn_mppi_mpc.models.integrators import irk_step
 
     rng = np.random.default_rng(3)
     dt = 0.1
@@ -298,7 +298,7 @@ def test_four_wheel_irk_per_tick_parity():
     round-4 'solver-level IRK untested' gap: jacfwd through the Newton stage
     solve is gated against complex-step through the converged collocation
     fixed point at every tick of a closed loop."""
-    from dnn_mppi_mpc_tpu.models.dynamics import four_wheel_torque
+    from dnn_mppi_mpc.models.dynamics import four_wheel_torque
 
     N, dt, ticks = 15, 0.1, 50
     Q = np.diag([20.0, 20.0, 1.0, 1.0, 1.0])
@@ -416,7 +416,7 @@ def test_oracle_qp_kkt():
 
 def test_oracle_sensitivities_match_jacfwd():
     """Complex-step ERK sensitivities == jax.jacfwd through the same map."""
-    from dnn_mppi_mpc_tpu.models.integrators import erk_step
+    from dnn_mppi_mpc.models.integrators import erk_step
 
     x = np.array([0.3, -0.2, 0.7])
     u = np.array([1.2, -0.4])

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 from scipy.interpolate import CubicSpline as ScipyCubic
 
-from dnn_mppi_mpc_tpu.paths.bezier import (
+from dnn_mppi_mpc.paths.bezier import (
     bezier_course_with_yaw,
     bezier_derivative_control_points,
     bernstein_matrix,
@@ -13,13 +13,13 @@ from dnn_mppi_mpc_tpu.paths.bezier import (
     calc_bezier_path,
     curvature,
 )
-from dnn_mppi_mpc_tpu.paths.generators import (
+from dnn_mppi_mpc.paths.generators import (
     circle_with_speed,
     lemniscate,
     lemniscate_with_speed,
     line,
 )
-from dnn_mppi_mpc_tpu.paths.splines import CubicSpline1D, CubicSpline2D, calc_spline_course
+from dnn_mppi_mpc.paths.splines import CubicSpline1D, CubicSpline2D, calc_spline_course
 
 
 def test_cubic_spline_1d_matches_scipy_natural():

@@ -9,7 +9,7 @@ import os
 
 import numpy as np
 
-from dnn_mppi_mpc_tpu.utils.plotting import (
+from dnn_mppi_mpc.utils.plotting import (
     plot_controls,
     plot_trajectory,
     save_animation,
@@ -69,7 +69,7 @@ def test_static_plots(tmp_path):
 def test_racecar_four_pane_animation(tmp_path):
     """The 4-pane race-car layout (main chase view + minimap + steer/accel
     gauges — models/vehicle.py:45-83) renders headless to a gif."""
-    from dnn_mppi_mpc_tpu.utils.plotting import save_racecar_animation
+    from dnn_mppi_mpc.utils.plotting import save_racecar_animation
 
     t = np.linspace(0, 2 * np.pi, 12)
     states = np.stack([10 * np.cos(t), 10 * np.sin(t), t + np.pi / 2], axis=1)

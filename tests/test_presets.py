@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from dnn_mppi_mpc_tpu import presets
-from dnn_mppi_mpc_tpu.models.learned import MLP, make_residual_fn
-from dnn_mppi_mpc_tpu.paths import lemniscate_with_speed, line
+from dnn_mppi_mpc import presets
+from dnn_mppi_mpc.models.learned import MLP, make_residual_fn
+from dnn_mppi_mpc.paths import lemniscate_with_speed, line
 
 
 def test_diff_drive_mppi_preset():
@@ -86,7 +86,7 @@ def test_nmpc_preset_overrides_forwarded():
     qp_backend='pallas' was a real bug (round 2)."""
     import pytest
 
-    from dnn_mppi_mpc_tpu.presets import (
+    from dnn_mppi_mpc.presets import (
         diff_drive_nmpc,
         four_wheel_nmpc,
         racecar_nmpc,
@@ -100,34 +100,32 @@ def test_nmpc_preset_overrides_forwarded():
 
 
 def test_pallas_presets_round_samples_to_lanes():
-    """Preset fused/Pallas paths must be constructible with their own default
-    K: the kernels assert K % 128 == 0 (ops/pallas/mppi_tick.py:361), so the
-    presets round K up instead of handing the user an AssertionError
-    (round-2 review finding)."""
+    """Presets keep the caller's K on the kernel path: the rollout kernel
+    pads K to its sample block itself (ops/pallas/rollout.py), so no preset
+    rounds K or hands the user an assertion."""
     goal = jnp.zeros(3)
-    solver, _ = presets.goal_seeking_mppi(goal, fused_tick=True)  # default 1500
-    assert solver.cfg.num_samples == 1536
+    solver, _ = presets.goal_seeking_mppi(goal, use_pallas=True)  # default 1500
+    assert solver.cfg.num_samples == 1500
+    assert solver.rollout_fn is not None
 
     ref = np.zeros((30, 4), np.float32)
-    solver, _ = presets.racecar_mppi(jnp.asarray(ref), fused_tick=True)  # 100
-    assert solver.cfg.num_samples == 128
-    solver, _ = presets.racecar_mppi(jnp.asarray(ref), use_pallas=True)
-    assert solver.cfg.num_samples == 128
+    solver, _ = presets.racecar_mppi(jnp.asarray(ref), use_pallas=True)  # 100
+    assert solver.cfg.num_samples == 100
+    assert solver.rollout_fn is not None
 
     path = np.zeros((30, 3), np.float32)
     solver, _ = presets.diff_drive_mppi(jnp.asarray(path), use_pallas=True)
-    assert solver.cfg.num_samples == 128
-
-    # an already-conforming K is left alone
-    solver, _ = presets.goal_seeking_mppi(goal, num_samples=1280, fused_tick=True)
-    assert solver.cfg.num_samples == 1280
+    assert solver.cfg.num_samples == 100
+    # on this CPU the default choice is the scan path
+    solver, _ = presets.diff_drive_mppi(jnp.asarray(path))
+    assert solver.rollout_fn is None
 
 
 def test_mppi_preset_overrides_replace_any_field():
     """**overrides must be able to replace ANY MPPIConfig field — explicitly
     set defaults used to collide ('multiple values for keyword argument',
     round-2 review finding)."""
-    from dnn_mppi_mpc_tpu.config import SmoothingFilter, Temperature
+    from dnn_mppi_mpc.config import SmoothingFilter, Temperature
 
     path = jnp.zeros((20, 3))
     solver, _ = presets.diff_drive_mppi(

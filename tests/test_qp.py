@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import scipy.optimize
 
-from dnn_mppi_mpc_tpu.solvers.qp import (
+from dnn_mppi_mpc.solvers.qp import (
     BoxedQPData,
     LQRData,
     barrier_qp_solve,

@@ -85,15 +85,15 @@ def _run_reference(ref_path, noises):
 def _run_engine(ref_path, noises, carry, persist):
     import jax.numpy as jnp
 
-    from dnn_mppi_mpc_tpu.config import (
+    from dnn_mppi_mpc.config import (
         CostAccumulation,
         MPPIConfig,
         MPPIParams,
         SmoothingFilter,
         Temperature,
     )
-    from dnn_mppi_mpc_tpu.models import euler_step, unicycle
-    from dnn_mppi_mpc_tpu.solvers.mppi import MPPISolver, make_tracking_costs
+    from dnn_mppi_mpc.models import euler_step, unicycle
+    from dnn_mppi_mpc.solvers.mppi import MPPISolver, make_tracking_costs
 
     cfg = MPPIConfig(
         num_samples=K, horizon=T, dim_x=3, dim_u=2, dt=DT,
@@ -175,15 +175,15 @@ def test_per_tick_strict_equality_goal_pose():
     """
     import jax.numpy as jnp
 
-    from dnn_mppi_mpc_tpu.config import (
+    from dnn_mppi_mpc.config import (
         CostAccumulation,
         MPPIConfig,
         MPPIParams,
         SmoothingFilter,
         Temperature,
     )
-    from dnn_mppi_mpc_tpu.models import euler_step, unicycle
-    from dnn_mppi_mpc_tpu.solvers.mppi import (
+    from dnn_mppi_mpc.models import euler_step, unicycle
+    from dnn_mppi_mpc.solvers.mppi import (
         MPPISolver,
         MPPIState,
         make_tracking_costs,
@@ -273,15 +273,15 @@ def test_per_tick_strict_equality_obstacles():
 
     import jax.numpy as jnp
 
-    from dnn_mppi_mpc_tpu.config import (
+    from dnn_mppi_mpc.config import (
         CostAccumulation,
         MPPIConfig,
         MPPIParams,
         SmoothingFilter,
         Temperature,
     )
-    from dnn_mppi_mpc_tpu.models import euler_step, unicycle
-    from dnn_mppi_mpc_tpu.solvers.mppi import (
+    from dnn_mppi_mpc.models import euler_step, unicycle
+    from dnn_mppi_mpc.solvers.mppi import (
         MPPISolver,
         MPPIState,
         make_tracking_costs,

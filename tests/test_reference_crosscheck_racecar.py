@@ -85,7 +85,7 @@ def _make_reference():
 def _make_engine(ref_path):
     import jax.numpy as jnp
 
-    from dnn_mppi_mpc_tpu.presets import racecar_mppi
+    from dnn_mppi_mpc.presets import racecar_mppi
 
     return racecar_mppi(
         jnp.asarray(ref_path), num_samples=K, horizon=T, dt=DT,
@@ -195,7 +195,7 @@ def test_polygon_collision_indicator_matches_reference():
     near-miss poses (mppi_race_car_obstacle.py:255-274)."""
     import jax.numpy as jnp
 
-    from dnn_mppi_mpc_tpu.ops.costs import vehicle_polygon_collision
+    from dnn_mppi_mpc.ops.costs import vehicle_polygon_collision
 
     ctrl = _make_reference()
     rng = np.random.default_rng(3)
@@ -221,7 +221,7 @@ def test_polygon_collision_indicator_matches_reference():
     # exclude only razor-edge poses where f32 vs f64 rounding legitimately
     # flips the strict inequality; everything else must agree exactly
     if not agree.all():
-        from dnn_mppi_mpc_tpu.ops.costs import _OUTLINE_X, _OUTLINE_Y  # noqa
+        from dnn_mppi_mpc.ops.costs import _OUTLINE_X, _OUTLINE_Y  # noqa
 
         bad = np.where(~agree)[0]
         assert len(bad) <= 2, f"{len(bad)} disagreements: {poses[bad]}"

@@ -19,17 +19,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dnn_mppi_mpc_tpu.config import SQPConfig
-from dnn_mppi_mpc_tpu.models.dynamics import residual_dynamics, unicycle
-from dnn_mppi_mpc_tpu.models.integrators import erk_step, euler_step
-from dnn_mppi_mpc_tpu.models.learned import (
+from dnn_mppi_mpc.config import SQPConfig
+from dnn_mppi_mpc.models.dynamics import residual_dynamics, unicycle
+from dnn_mppi_mpc.models.integrators import erk_step, euler_step
+from dnn_mppi_mpc.models.learned import (
     ResNet1D,
     make_residual_fn,
     residual_from_train_state,
 )
-from dnn_mppi_mpc_tpu.presets import dnn_mppi
-from dnn_mppi_mpc_tpu.solvers.sqp import NMPCSolver, OCPParams
-from dnn_mppi_mpc_tpu.train.training import TrainConfig, train_residual_model
+from dnn_mppi_mpc.presets import dnn_mppi
+from dnn_mppi_mpc.solvers.sqp import NMPCSolver, OCPParams
+from dnn_mppi_mpc.train.training import TrainConfig, train_residual_model
 
 DT = 0.05
 
@@ -50,12 +50,12 @@ def test_resnet18_residual_mppi_closes_model_error():
     """Full config-5 MPPI pipeline with the ResNet-18 regressor: the trained
     residual absorbs most of the nominal model's one-step error, and MPPI
     over the corrected model tracks without regression."""
-    from dnn_mppi_mpc_tpu.envs.closed_loop import (
+    from dnn_mppi_mpc.envs.closed_loop import (
         collect_residual_dataset,
         mppi_controller,
         run_closed_loop,
     )
-    from dnn_mppi_mpc_tpu.paths import line
+    from dnn_mppi_mpc.paths import line
 
     ref = line(jnp.zeros(2), jnp.array([4.0, 2.0]), num_points=120)
 
@@ -155,7 +155,7 @@ def test_resnet18_residual_through_nmpc_sqp():
 def test_resnet50_residual_mppi_step_runs():
     """ResNet-50 (bottleneck ×[3,4,6,3]) as MPPI dynamics: one engine step
     over the K-batched conv net is finite and shape-correct."""
-    from dnn_mppi_mpc_tpu.paths import line
+    from dnn_mppi_mpc.paths import line
 
     model = ResNet1D(out_dim=3, variant="50")
     variables = model.init(jax.random.PRNGKey(1), jnp.ones((1, 1, 5)))
@@ -179,7 +179,7 @@ def test_folded_resnet_matches_conv_path():
     both variants with non-trivial batch_stats."""
     import jax.tree_util as jtu
 
-    from dnn_mppi_mpc_tpu.models.learned import ResNet1D, fold_resnet1d_l1
+    from dnn_mppi_mpc.models.learned import ResNet1D, fold_resnet1d_l1
 
     for variant in ("18", "50"):
         model = ResNet1D(out_dim=3, variant=variant)
@@ -204,25 +204,3 @@ def test_folded_resnet_matches_conv_path():
         ref = model.apply(variables, xb[:, None, :])
         out = fold_resnet1d_l1(model, variables)(xb)
         np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=2e-5)
-
-
-def test_weight_streaming_chain_kernel_matches_fold():
-    """The Pallas weight-streaming dense-chain kernel (one launch per net
-    evaluation, double-buffered HBM->VMEM weight DMA, bf16 matmuls with f32
-    accumulation) reproduces the f32 XLA fold to bf16 resolution for both
-    ResNet variants — interpret mode, so the DMA choreography and the
-    transposed-storage matmul paths run in CI."""
-    from dnn_mppi_mpc_tpu.models.learned import ResNet1D, fold_resnet1d_l1
-    from dnn_mppi_mpc_tpu.ops.pallas.dense_chain import make_resnet_chain_fn
-
-    for variant in ("18", "50"):
-        model = ResNet1D(out_dim=3, variant=variant)
-        variables = model.init(jax.random.PRNGKey(0), jnp.ones((2, 1, 5)))
-        xb = jax.random.normal(jax.random.PRNGKey(3), (300, 5), jnp.float32)
-        ref = fold_resnet1d_l1(model, variables)(xb)
-        fn = make_resnet_chain_fn(model, variables, b_block=256, interpret=True)
-        out = fn(xb)
-        assert out.shape == (300, 3)
-        np.testing.assert_allclose(
-            np.asarray(out), np.asarray(ref), atol=2e-2
-        )

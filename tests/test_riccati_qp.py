@@ -1,4 +1,4 @@
-"""Parity: the fused barrier-Riccati QP kernel vs solvers/qp.py (interpret).
+"""Parity: the barrier-Riccati QP GPU kernel vs solvers/qp.py (interpret).
 
 The kernel (ops/pallas/riccati_qp.py) must reproduce ``barrier_qp_solve``
 in f32 — same μ-schedule, damping, regularization, condensing roll — across
@@ -15,8 +15,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dnn_mppi_mpc_tpu.ops.pallas.riccati_qp import pallas_barrier_qp_solve
-from dnn_mppi_mpc_tpu.solvers.qp import BoxedQPData, barrier_qp_solve
+from dnn_mppi_mpc.ops.pallas.riccati_qp import pallas_barrier_qp_solve
+from dnn_mppi_mpc.solvers.qp import BoxedQPData, barrier_qp_solve
 
 
 def _random_qp(rng, N=12, nx=3, nu=2, n_h=0, with_S=False):
@@ -107,15 +107,15 @@ def test_kernel_fuzz_many_seeds():
 def test_sqp_engine_pallas_backend_closed_loop():
     """cfg.qp_backend='pallas' end-to-end: diff-drive obstacle NMPC tracks
     the same trajectory as the XLA backend."""
-    from dnn_mppi_mpc_tpu.models.dynamics import unicycle
-    from dnn_mppi_mpc_tpu.presets import diff_drive_nmpc
-    from dnn_mppi_mpc_tpu.solvers.sqp import NMPCSolver, circle_obstacle_h
+    from dnn_mppi_mpc.models.dynamics import unicycle
+    from dnn_mppi_mpc.presets import diff_drive_nmpc
+    from dnn_mppi_mpc.solvers.sqp import NMPCSolver, circle_obstacle_h
 
     obs = jnp.array([[2.0, 0.6, 0.5]], jnp.float32)
     goal = jnp.array([4.0, 0.0, 0.0], jnp.float32)
     solver_x, params = diff_drive_nmpc(goal, N=20, obstacles=obs)
     cfg_p = dataclasses.replace(solver_x.cfg, qp_backend="pallas")
-    solver_p = NMPCSolver(cfg_p, unicycle, h_fn=circle_obstacle_h)
+    solver_p = NMPCSolver(cfg_p, unicycle, h_fn=circle_obstacle_h, interpret=True)
 
     def drive(solver):
         x = jnp.zeros(3, jnp.float32)
@@ -136,14 +136,14 @@ def test_sqp_engine_pallas_backend_closed_loop():
 def test_sqp_engine_pallas_backend_four_wheel():
     """qp_backend='pallas' on the four-wheel torque model (nx=5, nu=4,
     mpc_differential_dynamics.py) — the largest stage dims in the suite."""
-    from dnn_mppi_mpc_tpu.models.dynamics import four_wheel_torque
-    from dnn_mppi_mpc_tpu.presets import four_wheel_nmpc
-    from dnn_mppi_mpc_tpu.solvers.sqp import NMPCSolver
+    from dnn_mppi_mpc.models.dynamics import four_wheel_torque
+    from dnn_mppi_mpc.presets import four_wheel_nmpc
+    from dnn_mppi_mpc.solvers.sqp import NMPCSolver
 
     goal = jnp.array([1.0, 0.5, 0.0, 0.0, 0.0], jnp.float32)
     solver_x, params = four_wheel_nmpc(goal, N=20, sqp_iters=2, qp_iters=10)
     cfg_p = dataclasses.replace(solver_x.cfg, qp_backend="pallas")
-    solver_p = NMPCSolver(cfg_p, four_wheel_torque)
+    solver_p = NMPCSolver(cfg_p, four_wheel_torque, interpret=True)
 
     def drive(solver):
         x = jnp.zeros(5, jnp.float32)
@@ -160,7 +160,7 @@ def test_sqp_engine_pallas_backend_four_wheel():
 
 
 # ---------------------------------------------------------------------------
-# Lane-batched fleet kernel (fleet dim on the 128 VPU lanes)
+# Fleet kernel (one fleet member per thread, BLOCK_B members per program)
 # ---------------------------------------------------------------------------
 
 
@@ -172,9 +172,9 @@ def _stack_qps(qps):
     "n_h,with_S", [(0, False), (2, False), (2, True)]
 )
 def test_batched_kernel_matches_per_problem(n_h, with_S):
-    """Each lane of the batched kernel reproduces the per-problem kernel on
-    that member's QP (distinct problems per lane, incl. h-rows and S)."""
-    from dnn_mppi_mpc_tpu.ops.pallas.riccati_qp import (
+    """Each member of the fleet kernel reproduces the single-problem solve on
+    that member's QP (distinct problems per member, incl. h-rows and S)."""
+    from dnn_mppi_mpc.ops.pallas.riccati_qp import (
         pallas_batched_barrier_qp_solve,
     )
 
@@ -208,13 +208,15 @@ def test_batched_kernel_matches_per_problem(n_h, with_S):
 
 
 def test_batched_kernel_grid_beyond_lane_width():
-    """B > 128 spills into a sequential grid of lane blocks; padding lanes
-    replicate the last member and are sliced off."""
-    from dnn_mppi_mpc_tpu.ops.pallas.riccati_qp import (
+    """B beyond one program's block spills into a grid of member blocks;
+    padding members replicate the last member and are sliced off."""
+    from dnn_mppi_mpc.ops.pallas.riccati_qp import (
+        BLOCK_B,
         pallas_batched_barrier_qp_solve,
     )
 
-    B = 130  # 2 lane blocks, 126 padded lanes
+    B = 130  # 5 member blocks of 32, 30 padded members
+    assert B % BLOCK_B != 0 and B > 4 * BLOCK_B
     base = _random_qp(np.random.default_rng(0), N=4, nx=2, nu=1, n_h=0)
     rng = np.random.default_rng(1)
     # same structure, per-member gradients: cheap way to make B distinct QPs
@@ -227,7 +229,7 @@ def test_batched_kernel_grid_beyond_lane_width():
     dXb, dUb, _ = pallas_batched_barrier_qp_solve(
         qp_b, dx0, num_iters=4, interpret=True
     )
-    for i in (0, 63, 127, 128, 129):  # both lane blocks, incl. block edges
+    for i in (0, 31, 32, 127, 128, 129):  # several blocks, incl. block edges
         qp_i = base._replace(qx_base=qxb[i])
         dX, dU, _ = pallas_barrier_qp_solve(
             qp_i, dx0[i], num_iters=4, interpret=True
@@ -243,8 +245,8 @@ def test_batched_kernel_grid_beyond_lane_width():
 
 def test_vmappable_wrapper_broadcasts_unbatched_args():
     """custom_vmap rule: leaves NOT carrying the vmapped axis (shared QP
-    data, per-member dx0) are broadcast before the lane-batched dispatch."""
-    from dnn_mppi_mpc_tpu.ops.pallas.riccati_qp import make_vmappable_pallas_qp
+    data, per-member dx0) are broadcast before the fleet dispatch."""
+    from dnn_mppi_mpc.ops.pallas.riccati_qp import make_vmappable_pallas_qp
 
     qp = _random_qp(np.random.default_rng(5), N=6, nx=3, nu=2, n_h=2)
     B = 3
@@ -265,15 +267,11 @@ def test_vmappable_wrapper_broadcasts_unbatched_args():
         np.testing.assert_allclose(float(kktb[i]), float(kkt), rtol=2e-4, atol=2e-6)
 
 
-@pytest.mark.tpu_hw
-@pytest.mark.skipif(
-    jax.devices()[0].platform != "tpu",
-    reason="compiled (non-interpret) lane-batched kernel needs a TPU",
-)
-def test_batched_kernel_on_hardware(f32_mode):
-    """Compiled lane-batched kernel vs compiled per-problem kernel on-chip
-    (N=30 diff-drive dims — the PERF.md fleet-serving configuration)."""
-    from dnn_mppi_mpc_tpu.ops.pallas.riccati_qp import (
+@pytest.mark.gpu
+def test_batched_kernel_on_hardware(gpu, f32_mode):
+    """Compiled fleet kernel vs the compiled single-problem solve on the
+    card (N=30 diff-drive dims — the nmpc_fleet row's configuration)."""
+    from dnn_mppi_mpc.ops.pallas.riccati_qp import (
         pallas_batched_barrier_qp_solve,
     )
 
@@ -298,12 +296,12 @@ def test_batched_kernel_on_hardware(f32_mode):
 
 
 def test_batched_solve_differentiable_escape_hatch():
-    """jax.grad through a pallas-backend fleet: the fused kernels have no
+    """jax.grad through a pallas-backend fleet: the kernels have no
     autodiff rule, so batched_solve(differentiable=True) must route to the
     (semantically identical) XLA Riccati backend and differentiate."""
-    from dnn_mppi_mpc_tpu.config import SQPConfig
-    from dnn_mppi_mpc_tpu.models.dynamics import unicycle
-    from dnn_mppi_mpc_tpu.solvers.sqp import NMPCSolver, NMPCState, OCPParams
+    from dnn_mppi_mpc.config import SQPConfig
+    from dnn_mppi_mpc.models.dynamics import unicycle
+    from dnn_mppi_mpc.solvers.sqp import NMPCSolver, NMPCState, OCPParams
 
     cfg = SQPConfig(
         N=5, dim_x=3, dim_u=2, dt=0.1, sqp_iters=1, qp_iters=4,
@@ -340,9 +338,9 @@ def test_batched_solve_differentiable_escape_hatch():
 
 @pytest.mark.slow
 def test_batched_kernel_fuzz_dims():
-    """Randomized dims fuzz for the lane-batched kernel: per-member parity
-    with the per-problem kernel across (nx, nu, n_h, S, N, B) combinations."""
-    from dnn_mppi_mpc_tpu.ops.pallas.riccati_qp import (
+    """Randomized dims fuzz for the fleet kernel: per-member parity with the
+    single-problem solve across (nx, nu, n_h, S, N, B) combinations."""
+    from dnn_mppi_mpc.ops.pallas.riccati_qp import (
         pallas_batched_barrier_qp_solve,
     )
 
@@ -375,3 +373,30 @@ def test_batched_kernel_fuzz_dims():
             np.testing.assert_allclose(
                 np.asarray(dXb[i]), np.asarray(dX), rtol=3e-5, atol=3e-5
             )
+
+
+@pytest.mark.parametrize(
+    "n_h,with_S", [(0, False), (2, False), (0, True), (2, True)]
+)
+def test_kernel_follows_f64_problems(n_h, with_S):
+    """An f64 problem runs the kernel in f64 (the oracle-parity mode on the
+    card): the fleet kernel then matches the XLA solve to f64 rounding."""
+    from dnn_mppi_mpc.ops.pallas.riccati_qp import pallas_batched_barrier_qp_solve
+
+    B = 3
+    qps = [
+        jax.tree.map(
+            lambda a: a.astype(jnp.float64),
+            _random_qp(np.random.default_rng(40 + i), N=8, n_h=n_h, with_S=with_S),
+        )
+        for i in range(B)
+    ]
+    dx0 = jnp.asarray(0.2 * np.random.default_rng(4).normal(size=(B, 3)), jnp.float64)
+    dXb, dUb, kktb = pallas_batched_barrier_qp_solve(
+        _stack_qps(qps), dx0, num_iters=8, interpret=True
+    )
+    assert dXb.dtype == jnp.float64
+    for i in range(B):
+        dX, dU, kkt = barrier_qp_solve(qps[i], dx0[i], num_iters=8, return_kkt=True)
+        np.testing.assert_allclose(np.asarray(dUb[i]), np.asarray(dU), rtol=1e-9, atol=1e-10)
+        np.testing.assert_allclose(np.asarray(dXb[i]), np.asarray(dX), rtol=1e-9, atol=1e-10)

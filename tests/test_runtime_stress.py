@@ -17,7 +17,7 @@ import pytest
 
 _SRC_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "dnn_mppi_mpc_tpu",
+    "dnn_mppi_mpc",
     "runtime",
     "src",
 )

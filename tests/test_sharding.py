@@ -5,14 +5,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dnn_mppi_mpc_tpu.parallel.sharding import (
+from dnn_mppi_mpc.parallel.sharding import (
     make_batched_mppi_step,
     make_mesh,
     make_sharded_mppi_step,
 )
-from dnn_mppi_mpc_tpu.models.dynamics import unicycle
-from dnn_mppi_mpc_tpu.models.integrators import euler_step
-from dnn_mppi_mpc_tpu.solvers.mppi import MPPIState, make_tracking_costs, mppi_step
+from dnn_mppi_mpc.models.dynamics import unicycle
+from dnn_mppi_mpc.models.integrators import euler_step
+from dnn_mppi_mpc.solvers.mppi import MPPIState, make_tracking_costs, mppi_step
 
 from test_mppi_parity import _make_pair, DT, K, T
 
@@ -138,17 +138,20 @@ def test_sharded_scaling_efficiency_on_virtual_mesh():
 
 @pytest.mark.skipif(jax.device_count() < 8, reason="needs 8 virtual devices")
 def test_sharded_pallas_rollout_matches_unsharded():
-    """Pallas rollout under shard_map (interpret mode on CPU): the global
-    exploration-split offset must make sharded == unsharded."""
+    """The GPU rollout kernel under shard_map (interpret mode on CPU): the
+    global exploration-split offset must make sharded == unsharded."""
     import dataclasses
 
-    from dnn_mppi_mpc_tpu.solvers.mppi import make_pallas_diffdrive_rollout
+    from dnn_mppi_mpc.models import unicycle_tile
+    from dnn_mppi_mpc.solvers.mppi import make_rollout_kernel
 
     cfg, params, _, _ = _make_pair()
     cfg8 = dataclasses.replace(cfg, num_samples=2048, exploration=0.25)
     step_fn = lambda x, u: euler_step(unicycle, x, u, DT)
     stage, terminal = make_tracking_costs(cfg8)
-    rollout = make_pallas_diffdrive_rollout(cfg8, interpret=True)
+    rollout = make_rollout_kernel(
+        cfg8, unicycle_tile(DT), stage.tracking_spec, interpret=True
+    )
 
     mesh = make_mesh(("k",))
     sharded = make_sharded_mppi_step(
@@ -179,19 +182,19 @@ def test_sharded_pallas_rollout_matches_unsharded():
 def test_sharded_nmpc_fleet_matches_unsharded(backend):
     """A mesh-sharded NMPC fleet (fleet axis partitioned over devices, zero
     collectives) must equal the single-device vmapped fleet exactly —
-    SURVEY §2.10(c) at pod scale. shard_map (per-device program, not GSPMD)
-    means the pallas backend keeps the lane-batched fused QP kernel on each
-    shard — the fleet-serving production path."""
-    from dnn_mppi_mpc_tpu.config import SQPConfig
-    from dnn_mppi_mpc_tpu.models.dynamics import unicycle as uni
-    from dnn_mppi_mpc_tpu.parallel.sharding import make_sharded_nmpc_fleet
-    from dnn_mppi_mpc_tpu.solvers.sqp import NMPCSolver, NMPCState, OCPParams
+    SURVEY §2.10(c) across devices. shard_map (per-device program, not
+    GSPMD) means the pallas backend keeps the fleet QP kernel on each shard —
+    the fleet-serving production path."""
+    from dnn_mppi_mpc.config import SQPConfig
+    from dnn_mppi_mpc.models.dynamics import unicycle as uni
+    from dnn_mppi_mpc.parallel.sharding import make_sharded_nmpc_fleet
+    from dnn_mppi_mpc.solvers.sqp import NMPCSolver, NMPCState, OCPParams
 
     cfg = SQPConfig(
         N=8, dim_x=3, dim_u=2, dt=0.1, sqp_iters=2, qp_iters=8,
         qp_backend=backend,
     )
-    solver = NMPCSolver(cfg, uni)
+    solver = NMPCSolver(cfg, uni, interpret=backend == "pallas")
     B = 8
     rng = np.random.default_rng(5)
     goals = jnp.asarray(
@@ -231,20 +234,27 @@ def test_sharded_nmpc_fleet_matches_unsharded(backend):
 
 @pytest.mark.skipif(jax.device_count() < 8, reason="needs 8 virtual devices")
 @pytest.mark.parametrize("per_member_path", [False, True])
-def test_sharded_mppi_fleet_matches_unsharded(per_member_path):
+@pytest.mark.parametrize("kernel", [False, True])
+def test_sharded_mppi_fleet_matches_unsharded(per_member_path, kernel):
     """A mesh-sharded MPPI fleet (fleet axis partitioned over devices, zero
     collectives) must equal the single-device vmapped fleet exactly —
-    SURVEY §2.10(b) scenario parallelism at pod scale. On TPU the same
-    builder with fused=True keeps the lane-batched fused fleet tick on each
-    shard (tests/test_fleet_tick.py pins per-member kernel parity)."""
+    SURVEY §2.10(b) scenario parallelism across devices — on the scan path
+    and with the rollout kernel (vmapped: one launch per device slice)."""
     import dataclasses
 
-    from dnn_mppi_mpc_tpu.parallel.sharding import make_sharded_mppi_fleet
+    from dnn_mppi_mpc.models import unicycle_tile
+    from dnn_mppi_mpc.parallel.sharding import make_sharded_mppi_fleet
+    from dnn_mppi_mpc.solvers.mppi import make_rollout_kernel
 
     cfg, params, _, _ = _make_pair()
     cfg = dataclasses.replace(cfg, num_samples=64)
     step_fn = lambda x, u: euler_step(unicycle, x, u, DT)
     stage, terminal = make_tracking_costs(cfg)
+    rollout = (
+        make_rollout_kernel(cfg, unicycle_tile(DT), stage.tracking_spec, interpret=True)
+        if kernel
+        else None
+    )
     B = 8
 
     if per_member_path:
@@ -270,11 +280,11 @@ def test_sharded_mppi_fleet_matches_unsharded(per_member_path):
 
     mesh = make_mesh(("batch",))
     sharded = make_sharded_mppi_fleet(
-        cfg, step_fn, stage, terminal, mesh, axis="batch"
+        cfg, step_fn, stage, terminal, mesh, axis="batch", rollout_fn=rollout
     )
     u_s, st_s, aux_s = sharded(params, states, x0s)
 
-    # single-device reference: per-member mppi_step on the same keys
+    # single-device reference: per-member scan-path mppi_step on the same keys
     def one(p_ref, s, x):
         p = dataclasses.replace(params, ref_path=p_ref)
         return mppi_step(cfg, step_fn, stage, terminal, p, s, x, None)
@@ -299,7 +309,7 @@ def test_sharded_mppi_fleet_matches_unsharded(per_member_path):
 def test_sharded_mppi_fleet_divisibility_error():
     import dataclasses
 
-    from dnn_mppi_mpc_tpu.parallel.sharding import make_sharded_mppi_fleet
+    from dnn_mppi_mpc.parallel.sharding import make_sharded_mppi_fleet
 
     cfg, params, _, _ = _make_pair()
     cfg = dataclasses.replace(cfg, num_samples=64)

@@ -12,10 +12,10 @@ import numpy as np
 import pytest
 import scipy.optimize
 
-from dnn_mppi_mpc_tpu.config import SQPConfig
-from dnn_mppi_mpc_tpu.models.dynamics import unicycle
-from dnn_mppi_mpc_tpu.models.integrators import erk_step
-from dnn_mppi_mpc_tpu.solvers.sqp import NMPCSolver, OCPParams
+from dnn_mppi_mpc.config import SQPConfig
+from dnn_mppi_mpc.models.dynamics import unicycle
+from dnn_mppi_mpc.models.integrators import erk_step
+from dnn_mppi_mpc.solvers.sqp import NMPCSolver, OCPParams
 
 N, DT = 8, 0.1
 NX, NU = 3, 2
@@ -279,7 +279,7 @@ def test_converged_sqp_fuzz_random_ocps(family, seed):
     must reach (or beat) scipy SLSQP's optimum on the dense NLP, with a tight
     multiple-shooting defect — the property-level version of the single
     hand-picked parity case above."""
-    from dnn_mppi_mpc_tpu.models.dynamics import BicycleParams, kinematic_bicycle
+    from dnn_mppi_mpc.models.dynamics import BicycleParams, kinematic_bicycle
 
     rng = np.random.default_rng(100 * (family == "bicycle") + seed)
     if family == "unicycle":

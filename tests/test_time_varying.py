@@ -1,4 +1,4 @@
-"""Step-dependent dynamics F(x, u, t) through MPPI, CEM and the generic tick.
+"""Step-dependent dynamics F(x, u, t) through MPPI, CEM and the rollout kernel.
 
 The pytorch_mppi spec's dynamics take the timestep
 (`dynamics(states, actions, t)`, /root/reference/test/test_mppi_diff_obs.py:28-42);
@@ -6,8 +6,8 @@ The pytorch_mppi spec's dynamics take the timestep
 argument — the int32 rollout step index — through every rollout path:
 
 * scan engine: t from the horizon scan;
-* generic fused tick (CPU interpret): ``step_takes_t`` passes the fori index
-  to the tile step (``lift_dynamics_time_varying``);
+* GPU rollout kernel (CPU interpret): ``step_takes_t`` passes the loop
+  index to the tile step;
 * sampled-trajectory and optimal-trajectory re-rollouts.
 
 The test model is a unicycle whose actuation decays with rollout time
@@ -23,16 +23,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from dnn_mppi_mpc_tpu.config import (
+from dnn_mppi_mpc.config import (
     MPPIConfig,
     MPPIParams,
     SmoothingFilter,
     Temperature,
 )
-from dnn_mppi_mpc_tpu.models.tile import lift_dynamics_time_varying
-from dnn_mppi_mpc_tpu.solvers.mppi import (
+from dnn_mppi_mpc.solvers.mppi import (
     MPPIState,
-    make_generic_fused_tick,
+    make_rollout_kernel,
     make_tracking_costs,
     mppi_step,
     sampled_trajectories,
@@ -55,6 +54,14 @@ def dyn_tv(x, u, t):
         ],
         axis=-1,
     )
+
+
+def tile_tv(xs, vs, t):
+    """dyn_tv in tile form (one array per state/control dimension)."""
+    x, y, yaw = xs
+    decay = 1.0 / (1.0 + 0.1 * t.astype(x.dtype) * DT)
+    v, w = vs[0] * decay, vs[1] * decay
+    return (x + v * jnp.cos(yaw) * DT, y + v * jnp.sin(yaw) * DT, yaw + w * DT)
 
 
 def _cfg(**kw):
@@ -104,8 +111,8 @@ def test_scan_uses_t_and_matches_manual_rollout():
 
     # manual S for a few samples: v = clip(u_prev + eps) (exploit block),
     # cost = tracking + energy, with the SAME decaying dynamics
-    from dnn_mppi_mpc_tpu.ops.waypoints import nearest_waypoint
-    from dnn_mppi_mpc_tpu.solvers.mppi import CostContext
+    from dnn_mppi_mpc.ops.waypoints import nearest_waypoint
+    from dnn_mppi_mpc.solvers.mppi import CostContext
 
     wp, _ = nearest_waypoint(params.ref_path, x0[:2], jnp.int32(0), 8)
     ctx = CostContext(params=params, waypoint_start=wp)
@@ -151,11 +158,10 @@ def test_generic_tick_parity_with_scan():
         cfg, dyn_tv, stage, terminal, params, state, x0, noise=noise
     )
 
-    tile = lift_dynamics_time_varying(dyn_tv)
-    tick = make_generic_fused_tick(cfg, tile, interpret=True)
+    tick = make_rollout_kernel(cfg, tile_tv, stage.tracking_spec, interpret=True)
     u0_f, st_f, aux_f = mppi_step(
         cfg, dyn_tv, stage, terminal, params, state, x0,
-        noise=noise, tick_fn=tick,
+        noise=noise, rollout_fn=tick,
     )
     np.testing.assert_allclose(
         np.asarray(aux_scan.costs), np.asarray(aux_f.costs), rtol=2e-4, atol=1e-3
@@ -183,7 +189,7 @@ def test_sampled_trajectories_thread_t():
 
 
 def test_cem_time_varying():
-    from dnn_mppi_mpc_tpu.solvers.cem import CEMConfig, CEMSolver
+    from dnn_mppi_mpc.solvers.cem import CEMConfig, CEMSolver
 
     cfg = CEMConfig(
         num_samples=128, horizon=8, dim_x=3, dim_u=2, dt=DT,
@@ -200,11 +206,23 @@ def test_cem_time_varying():
 
 
 def test_solver_guard_rejects_specialized_kernels():
-    import pytest
+    """MPPISolver with the kernel bound as its rollout takes t through the
+    tile step: its tick equals the scan solver's on the same ε."""
+    from dnn_mppi_mpc.solvers.mppi import MPPISolver
 
-    from dnn_mppi_mpc_tpu.solvers.mppi import MPPISolver, make_tracking_costs
-
-    cfg = _cfg()
+    cfg = _cfg(compute_optimal_traj=False)
+    params = _params()
     stage, terminal = make_tracking_costs(cfg)
-    with pytest.raises(ValueError, match="time_varying"):
-        MPPISolver(cfg, dyn_tv, stage, terminal, fused_tick=True)
+    kernel = MPPISolver(
+        cfg, dyn_tv, stage, terminal,
+        rollout_fn=make_rollout_kernel(cfg, tile_tv, stage.tracking_spec, interpret=True),
+    )
+    scan = MPPISolver(cfg, dyn_tv, stage, terminal, use_pallas=False)
+    x0 = jnp.asarray([0.1, -0.1, 0.3], jnp.float32)
+    noise = _noise(7)
+    u_k, _, aux_k = kernel.step(params, kernel.init(), x0, noise)
+    u_s, _, aux_s = scan.step(params, scan.init(), x0, noise)
+    np.testing.assert_allclose(
+        np.asarray(aux_k.costs), np.asarray(aux_s.costs), rtol=2e-4, atol=1e-3
+    )
+    np.testing.assert_allclose(np.asarray(u_k), np.asarray(u_s), atol=2e-4)

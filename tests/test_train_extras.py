@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dnn_mppi_mpc_tpu.train.excitation import (
+from dnn_mppi_mpc.train.excitation import (
     latin_hypercube,
     multisine_sequence,
     ramp_sequence,
@@ -13,7 +13,7 @@ from dnn_mppi_mpc_tpu.train.excitation import (
     sine_sequence,
     step_sequence,
 )
-from dnn_mppi_mpc_tpu.train.rl import ActorCritic, PPOConfig, compute_gae, make_ppo_trainer
+from dnn_mppi_mpc.train.rl import ActorCritic, PPOConfig, compute_gae, make_ppo_trainer
 
 
 def test_step_ramp_sine_shapes_and_bounds():
@@ -106,7 +106,7 @@ def test_ppo_learns_point_goal():
 def test_raster_scene_observability():
     """Rasterizer: channels light up at the right world positions and the
     heading marker makes orientation observable from one frame."""
-    from dnn_mppi_mpc_tpu.envs.render import raster_scene
+    from dnn_mppi_mpc.envs.render import raster_scene
 
     size, extent = 32, 4.0
     img = raster_scene(
@@ -149,8 +149,8 @@ def test_pixel_ppo_learns_point_goal():
     actor-critic on rasterized frames must improve reward on the same
     point-goal task the state-input test uses — the reference's
     camera-image RL experiment re-created without a physics renderer."""
-    from dnn_mppi_mpc_tpu.envs.render import raster_scene
-    from dnn_mppi_mpc_tpu.train.rl import PixelActorCritic
+    from dnn_mppi_mpc.envs.render import raster_scene
+    from dnn_mppi_mpc.train.rl import PixelActorCritic
 
     dt = 0.2
     goal = jnp.zeros(2)

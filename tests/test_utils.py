@@ -6,8 +6,8 @@ import time
 
 import numpy as np
 
-from dnn_mppi_mpc_tpu.utils.logging import MetricsWriter, save_episode_csv
-from dnn_mppi_mpc_tpu.utils.profiling import Timer, mppi_roofline, time_fn
+from dnn_mppi_mpc.utils.logging import MetricsWriter, save_episode_csv
+from dnn_mppi_mpc.utils.profiling import Timer, mppi_roofline, time_fn
 
 
 def test_timer_percentiles():
@@ -31,12 +31,21 @@ def test_time_fn_blocks():
 
 
 def test_roofline_model_sane():
-    r = mppi_roofline(K=10240, T=50, W=20)
-    assert r["bound"] in ("compute", "memory")
+    r = mppi_roofline(K=10240, T=50, W=20, device_kind="NVIDIA H100 80GB HBM3")
     assert r["flops"] == 10240 * 50 * (10 + 10 * 20)
-    assert r["t_compute_us"] > 0 and r["t_memory_us"] > 0
-    # this workload is strongly compute bound (high arithmetic intensity)
+    bytes_moved = 10240 * 50 * 2 * 4 + 10240 * 4
+    assert r["bytes"] == bytes_moved
+    # H100 HBM3: 3.35 TB/s (data sheet)
+    assert abs(r["t_memory_us"] - bytes_moved / 3.35e12 * 1e6) < 1e-9
+    # the rollout does far more arithmetic than it moves bytes
     assert r["arithmetic_intensity"] > 10
+
+
+def test_roofline_unknown_device_raises():
+    import pytest
+
+    with pytest.raises(ValueError, match="no published peaks"):
+        mppi_roofline(K=1024, T=10, W=20, device_kind="cpu")
 
 
 def test_metrics_writer_jsonl(tmp_path):

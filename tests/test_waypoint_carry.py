@@ -7,8 +7,8 @@ progress — the nearest-waypoint cost itself has no progress term. The engine's
 pure equivalent carries a monotone per-rollout window start through the scan
 (MPPIConfig.waypoint_carry="rollout"), optionally persisting the furthest index
 across ticks (waypoint_persist="max"). Exact parity against the numpy oracle in
-the same mode; behavioral gain vs the tick-anchored default; scan-vs-fused
-parity for the kernel implementation (per-lane carried index, masked
+the same mode; behavioral gain vs the tick-anchored default; scan-vs-kernel
+parity for the GPU rollout kernel (per-sample carried index, masked
 running-min over a pre-gathered carry window). The direct comparison against the
 reference's own code runs in tests/test_reference_crosscheck.py.
 """
@@ -22,17 +22,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dnn_mppi_mpc_tpu.config import (
+from dnn_mppi_mpc.config import (
     CostAccumulation,
     MPPIConfig,
     MPPIParams,
     SmoothingFilter,
     Temperature,
 )
-from dnn_mppi_mpc_tpu.models import euler_step, unicycle
-from dnn_mppi_mpc_tpu.paths.generators import line
-from dnn_mppi_mpc_tpu.solvers.mppi import MPPISolver, make_tracking_costs, mppi_step
-from dnn_mppi_mpc_tpu.testing.oracle import OracleMPPI
+from dnn_mppi_mpc.models import euler_step, unicycle
+from dnn_mppi_mpc.paths.generators import line
+from dnn_mppi_mpc.solvers.mppi import MPPISolver, make_tracking_costs, mppi_step
+from dnn_mppi_mpc.testing.oracle import OracleMPPI
 
 K, T, DT = 64, 10, 0.1
 
@@ -121,55 +121,61 @@ def test_rollout_carry_progresses_faster_than_tick_anchor():
     assert prog_roll > 2.0 * max(prog_tick, 1e-6), (prog_tick, prog_roll)
 
 
-def test_rollout_carry_rejects_sharded_rollout_path():
-    cfg, params, solver, _, step_fn = _make()
+def _kernel(cfg, stage):
+    from dnn_mppi_mpc.models import unicycle_tile
+    from dnn_mppi_mpc.solvers.mppi import make_rollout_kernel
+
+    return make_rollout_kernel(cfg, unicycle_tile(DT), stage.tracking_spec, interpret=True)
+
+
+def test_rollout_carry_sharded_matches_unsharded():
+    """The kernel's carried window under shard_map: each shard returns its
+    furthest carried index and the persisted lookahead is their pmax — the
+    sharded tick equals the one-device tick."""
+    from dnn_mppi_mpc.parallel.sharding import make_sharded_mppi_step
+
+    cfg, params, solver, _, step_fn = _make(persist="max")
+    cfg = dataclasses.replace(cfg, num_samples=256)
     stage, terminal = make_tracking_costs(cfg)
-    with pytest.raises(ValueError, match="sharded"):
-        mppi_step(
-            cfg, step_fn, stage, terminal, params,
-            solver.init(), jnp.zeros(3),
-            noise=jnp.zeros((K, T, 2), jnp.float32),
-            rollout_fn=lambda *a, **k: None,
-        )
-
-
-def test_rollout_carry_rejects_tick_anchored_tick_fn():
-    """A tick built WITHOUT rollout-carry must be refused in rollout mode."""
-    from dnn_mppi_mpc_tpu.solvers.mppi import make_pallas_diffdrive_tick
-
-    cfg, params, solver, _, step_fn = _make()
-    stage, terminal = make_tracking_costs(cfg)
-    anchored = make_pallas_diffdrive_tick(
-        dataclasses.replace(cfg, waypoint_carry="tick"), interpret=True
+    tick = _kernel(cfg, stage)
+    if jax.device_count() < 4:
+        pytest.skip("needs 4 virtual devices")
+    mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:4]), ("k",))
+    sharded = make_sharded_mppi_step(cfg, step_fn, stage, terminal, mesh, rollout_fn=tick)
+    rng = np.random.default_rng(2)
+    noise = jnp.asarray(
+        rng.multivariate_normal(np.zeros(2), np.asarray(params.sigma), size=(256, T)),
+        jnp.float32,
     )
-    with pytest.raises(ValueError, match="anchors its waypoint window"):
-        mppi_step(
-            cfg, step_fn, stage, terminal, params,
-            solver.init(), jnp.zeros(3),
-            noise=jnp.zeros((K, T, 2), jnp.float32),
-            tick_fn=anchored,
-        )
+    x0 = jnp.asarray([0.5, -0.3, 0.0])
+    st = solver.init()
+    u_s, st_s, aux_s = sharded(params, st, x0, noise)
+    u_1, st_1, aux_1 = mppi_step(
+        cfg, step_fn, stage, terminal, params, st, x0, noise=noise, rollout_fn=tick
+    )
+    np.testing.assert_allclose(np.asarray(aux_s.costs), np.asarray(aux_1.costs), rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(u_s), np.asarray(u_1), rtol=1e-6, atol=1e-7)
+    assert int(st_s.waypoint_idx) == int(st_1.waypoint_idx)
 
 
 @pytest.mark.parametrize("persist", ["none", "max"])
-@pytest.mark.parametrize("fuse_epilogue", [False, True])
-@pytest.mark.parametrize("iso_xy", [False, True])
-def test_fused_tick_rollout_carry_matches_scan(persist, fuse_epilogue, iso_xy):
-    """The kernel's per-lane carried window == the scan path, tick for tick:
-    costs, u0, carried waypoint index and status all agree over a closed
-    loop that advances well past the initial window."""
-    from dnn_mppi_mpc_tpu.solvers.mppi import make_pallas_diffdrive_tick
-
+@pytest.mark.parametrize("num_samples", [128, 100])
+@pytest.mark.parametrize("obstacles", [False, True])
+def test_fused_tick_rollout_carry_matches_scan(persist, num_samples, obstacles):
+    """The kernel's per-sample carried window == the scan path, tick for
+    tick: costs, u0, carried waypoint index and status all agree over a
+    closed loop that advances well past the initial window (K=100 also runs
+    the kernel's padded sample tail; obstacles add the circle penalty)."""
     cfg, params, solver, _, step_fn = _make(persist=persist)
-    cfg = dataclasses.replace(cfg, num_samples=128)  # kernel lane constraint
-    stage, terminal = make_tracking_costs(cfg)
-    # iso_xy is exact here (stage/terminal weights are x/y-symmetric) and
-    # its rollout_carry combination was previously an untested kernel branch
-    # (round-4 review finding)
-    tick = make_pallas_diffdrive_tick(
-        cfg, interpret=True, fuse_epilogue=fuse_epilogue, iso_xy=iso_xy
+    cfg = dataclasses.replace(cfg, num_samples=num_samples)
+    if obstacles:
+        params = dataclasses.replace(
+            params, obstacles=jnp.array([[3.0, -1.0, 0.4], [6.0, -3.5, 0.5]])
+        )
+    stage, terminal = make_tracking_costs(
+        cfg, collision="circle" if obstacles else "none"
     )
-    assert tick.supports_rollout_carry
+    tick = _kernel(cfg, stage)
 
     rng = np.random.default_rng(0)
     st_s = solver.init()
@@ -179,7 +185,7 @@ def test_fused_tick_rollout_carry_matches_scan(persist, fuse_epilogue, iso_xy):
     for t in range(12):
         noise = jnp.asarray(
             rng.multivariate_normal(
-                np.zeros(2), np.asarray(params.sigma), size=(128, T)
+                np.zeros(2), np.asarray(params.sigma), size=(num_samples, T)
             ),
             jnp.float32,
         )
@@ -188,7 +194,7 @@ def test_fused_tick_rollout_carry_matches_scan(persist, fuse_epilogue, iso_xy):
         )
         u0_f, st_f, aux_f = mppi_step(
             cfg, step_fn, stage, terminal, params, st_f, x_f, noise=noise,
-            tick_fn=tick,
+            rollout_fn=tick,
         )
         np.testing.assert_allclose(
             np.asarray(aux_s.costs), np.asarray(aux_f.costs), rtol=2e-4, atol=2e-3
@@ -207,18 +213,14 @@ def test_fused_tick_rollout_carry_matches_scan(persist, fuse_epilogue, iso_xy):
 
 @pytest.mark.parametrize("carry_window_len", [30, 48])
 def test_generic_tick_rollout_carry_matches_scan(carry_window_len):
-    """Generic-tick carry parity (both the unrolled ≤32-row window and the
-    fori-loop SMEM path at 48 rows) against the scan engine."""
-    from dnn_mppi_mpc_tpu.models import unicycle_tile
-    from dnn_mppi_mpc_tpu.solvers.mppi import make_generic_fused_tick
-
+    """Kernel carry parity on both window paths (the unrolled ≤32-row
+    window and the in-kernel loop at 48 rows) against the scan engine."""
     cfg, params, solver, _, step_fn = _make(persist="max")
     cfg = dataclasses.replace(
         cfg, num_samples=128, carry_window_len=carry_window_len
     )
     stage, terminal = make_tracking_costs(cfg)
-    tick = make_generic_fused_tick(cfg, unicycle_tile(DT), interpret=True)
-    assert tick.supports_rollout_carry
+    tick = _kernel(cfg, stage)
 
     rng = np.random.default_rng(4)
     st_s = solver.init()
@@ -237,7 +239,7 @@ def test_generic_tick_rollout_carry_matches_scan(carry_window_len):
         )
         u0_f, st_f, aux_f = mppi_step(
             cfg, step_fn, stage, terminal, params, st_f, x_f, noise=noise,
-            tick_fn=tick,
+            rollout_fn=tick,
         )
         np.testing.assert_allclose(
             np.asarray(aux_s.costs), np.asarray(aux_f.costs), rtol=2e-4, atol=2e-3
@@ -248,16 +250,6 @@ def test_generic_tick_rollout_carry_matches_scan(carry_window_len):
         assert int(st_s.waypoint_idx) == int(st_f.waypoint_idx), t
         x_s = step_fn(x_s, u0_s)
         x_f = step_fn(x_f, u0_f)
-
-
-def test_rollout_carry_blocked_kernel_guard():
-    from dnn_mppi_mpc_tpu.solvers.mppi import MPPISolver
-
-    cfg, params, solver, _, step_fn = _make()
-    stage, terminal = make_tracking_costs(cfg)
-    big = dataclasses.replace(cfg, num_samples=131072, horizon=50)
-    with pytest.raises(ValueError, match="single-block"):
-        MPPISolver(big, step_fn, stage, terminal, fused_tick=True)
 
 
 def test_config_validation():
